@@ -18,6 +18,17 @@ non-zero):
   width    main path B: ops.moments_update over 20 steps of 262,144 events
            with F = 2048 and injected outliers, each step replayed through the
            kernel and the plain version;
+  flash    the flash-attention kernel against its plain PyTorch version on
+           the card: the repo's 8 test shapes, the kv_len case, ragged shapes,
+           100 random shapes and the full-width gemma-2b prefill shape (B 4,
+           S 1024, H 8, KV 1, hd 256, causal, bf16, and again in float32),
+           with a determinism check and timings beside one
+           scaled_dot_product_attention call (a yardstick only);
+  serve    main path C: repro_torch.launch.serve at gemma-2b's published
+           width (8 requests of 1024 prompt tokens, 32 new tokens each, in
+           waves of 4) with the port's ChimbukoMonitor; then the float32
+           gemma-2b smoke model through prefill and decode on the card (the
+           kernel) and on the CPU (the plain version), logits held together;
 
 then one JSON line describing every ported kernel, and last
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 2 and prints
@@ -25,6 +36,7 @@ no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -46,7 +58,27 @@ KERNEL_CASES = [(64, 16, 32), (500, 128, 128), (1000, 7, 512)]  # test_kernels.p
 WIDTH_N, WIDTH_F, WIDTH_EB = 262_144, 2048, 512
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same sheet
+H100_BF16_OPS_PER_S = 989e12  # bf16 dense tensor cores, same sheet
 MOMENTS_OPS_PER_EVENT = 20  # float32 operations the kernel does per event
+FLASH_CASES = [  # tests/test_kernels.py:66-76: (B, Sq, Sk, H, KV, hd, causal, window, cap, dtype)
+    (2, 128, 128, 4, 4, 64, True, 0, 0.0, "float32"),
+    (1, 256, 256, 4, 2, 64, True, 0, 0.0, "float32"),
+    (2, 128, 128, 8, 1, 64, True, 0, 0.0, "bfloat16"),
+    (1, 256, 256, 4, 4, 64, False, 0, 0.0, "float32"),
+    (1, 256, 256, 4, 2, 64, True, 100, 0.0, "float32"),
+    (1, 128, 128, 2, 2, 64, True, 0, 50.0, "float32"),
+    (1, 128, 128, 2, 2, 120, True, 0, 0.0, "float32"),
+    (1, 128, 128, 2, 1, 256, True, 64, 30.0, "bfloat16"),
+]
+FLASH_RAGGED = [  # shapes the Pallas wrapper refuses; the kernel masks the edges
+    (2, 70, 70, 4, 2, 16, True, 0, 0.0, "float32"),
+    (2, 33, 97, 4, 2, 120, False, 0, 0.0, "float32"),
+    (2, 100, 100, 4, 2, 256, True, 40, 30.0, "bfloat16"),
+]
+FLASH_FULL = (4, 1024, 1024, 8, 1, 256, True, 0, 0.0, "bfloat16")  # gemma-2b prefill wave
+FLASH_SWEEP = 100  # random shapes: GQA groups, head dims, ragged lengths, masks, dtypes
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:88
+SERVE = dict(arch="gemma-2b", n_requests=8, batch=4, prompt_len=1024, max_new=32)
 
 
 def log(msg: str) -> None:
@@ -89,6 +121,22 @@ class Agreement:
         self.max_rel = max(self.max_rel, float(rel[seen].max()) if seen.any() else 0.0)
 
 
+def zero_counts() -> None:
+    """Set every kernel wrapper's launch count to 0 (before a main path)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moments as mo
+
+    mo.launches = 0
+    fa.launches = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moments as mo
+
+    return {"moments_and_labels": mo.launches, "flash_attention": fa.launches}
+
+
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean milliseconds per call of ``fn`` on the current stream (CUDA events)."""
     import torch
@@ -118,26 +166,79 @@ def host_ms(fn, iters: int) -> float:
     return ms
 
 
-def device_ms_by_kernel(fn, iters: int) -> dict:
-    """Device milliseconds per call of ``fn``, by kernel name (torch.profiler);
-    empty where the profiler records no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+# The name torch.profiler gives each kernel of the port, by wrapper count.
+PROFILER_NAMES = {"moments_and_labels": ("moments_pass1", "moments_pass2"),
+                  "flash_attention": ("flash_fwd",)}
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
+
+def _profile(fn, calls: int):
+    """Profile ``calls`` calls of ``fn`` after a warm-up cycle of as many, so
+    that the recorded cycle loses nothing to the profiler's start.  Returns
+    {kernel name[:120]: (device ms, launches)}, the host wall ms of the
+    recorded cycle, and the wrapper counts' rise over it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):  # warm-up cycle, then the recorded one
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launched = {k: v - before[k] for k, v in read_counts().items()}
+            prof.step()
+    by_kernel = {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
-        if us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            out[ev.key[:60]] = us / 1e3 / iters
-    return out
+        if us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA") and \
+                not ev.key.startswith("ProfilerStep"):  # the schedule's own range, no kernel
+            ms, n = by_kernel.get(ev.key[:120], (0.0, 0))
+            by_kernel[ev.key[:120]] = (ms + us / 1e3, n + ev.count)
+    ops = sum(1 for e in prof.events() if e.name.startswith("aten::") and not (
+        e.cpu_parent is not None and e.cpu_parent.name.startswith("aten::")))
+    return by_kernel, wall_ms, launched, ops / calls
+
+
+def _lost_launches(by_kernel, calls, launched) -> str:
+    """Why a profile cannot be read ('' where it can): a kernel the profiler
+    saw a number of times that is no multiple of ``calls``, or a kernel of
+    the port seen fewer or more times than its wrapper launched it."""
+    for name, (_, n) in by_kernel.items():
+        if n % calls:
+            return f"{name}: {n} launches over {calls} calls"
+    for wrapper, names in PROFILER_NAMES.items():
+        for part in names:
+            n = sum(c for k, (_, c) in by_kernel.items() if part in k)
+            if n != launched[wrapper]:
+                return f"{part}: profiler saw {n} launches, the wrapper made {launched[wrapper]}"
+    return ""
+
+
+def profiled(fn, calls: int, tries: int = 3):
+    """``_profile`` taken again (at most ``tries`` times in all) while the
+    profiler has lost a launch; raises if it still has.  A profile with no
+    device time at all is returned as it is: its device times then read
+    "not measured"."""
+    for _ in range(tries):
+        by_kernel, wall_ms, launched, ops = _profile(fn, calls)
+        why = _lost_launches(by_kernel, calls, launched)
+        if not why or not by_kernel:
+            return by_kernel, wall_ms, ops
+        log(f"profile: lost launches ({why}); taken again")
+    raise AssertionError(f"torch.profiler lost launches in {tries} profiles: {why}")
+
+
+def device_ms_by_kernel(fn, iters: int) -> dict:
+    """Device milliseconds per launch of each kernel of ``fn`` (torch.profiler,
+    over ``iters`` calls; every kernel here launches once per call)."""
+    by_kernel, _, _ = profiled(fn, iters)
+    return {name: ms / n for name, (ms, n) in by_kernel.items()}
 
 
 # ---------------------------------------------------------------------- env
@@ -234,7 +335,7 @@ def phase_kernel(dev, agree: Agreement) -> dict:
     timing["host_ms"] = host_ms(launch, iters=200)
     timing["device_ms"] = device_ms_by_kernel(launch, iters=20)
     log(f"kernel: full width host enqueue {timing['host_ms'] * 1e3:.2f} us/call; device time "
-        f"by kernel (torch.profiler, us/call): "
+        f"by kernel (torch.profiler, us/launch): "
         + (", ".join(f"{k} {v * 1e3:.2f}" for k, v in timing["device_ms"].items())
            or "not measured (no device time recorded)"))
 
@@ -278,7 +379,6 @@ def phase_trace(dev, group, ranks=100, steps=30, roots=64, min_count=30.0) -> di
     from repro_torch.core.callstack import CallStackBuilder
     from repro_torch.core.sim import WorkloadGenerator, nwchem_like
     from repro_torch.core.stats import StatsTable
-    from repro_torch.kernels import moments as mo
 
     spec = nwchem_like(anomaly_rate=0.004, roots_per_frame=roots)
     for fs in spec.funcs.values():
@@ -294,7 +394,7 @@ def phase_trace(dev, group, ranks=100, steps=30, roots=64, min_count=30.0) -> di
     agree = total = tp = fp = fn = n_events = 0
     host_s = device_s = 0.0
 
-    mo.launches = 0
+    zero_counts()
     for step in range(steps):
         t0 = time.perf_counter()
         recs, truths, fids, durs = _trace_step_records(gen, builders, step)
@@ -332,7 +432,8 @@ def phase_trace(dev, group, ranks=100, steps=30, roots=64, min_count=30.0) -> di
         sd = np.sqrt(np.maximum(got[:, T.M2] / np.maximum(got[:, T.N], 1.0), 0.0))
         np.testing.assert_allclose(sd[seen], host.stds()[seen], rtol=1e-2,
                                    err_msg=f"trace step {step}: sigma")
-    launches = mo.launches
+    counts = read_counts()
+    launches = counts["moments_and_labels"]
 
     agreement = agree / max(total, 1)
     if agreement < 0.9999:
@@ -344,7 +445,7 @@ def phase_trace(dev, group, ranks=100, steps=30, roots=64, min_count=30.0) -> di
         f"{agreement:.6f}; precision {precision:.4f} recall {recall:.4f} "
         f"(tp {tp} fp {fp} fn {fn}); host {host_s:.2f} s, device steps {device_s:.3f} s; "
         f"moments launches {launches}")
-    return {"launches": launches, "precision": precision, "recall": recall}
+    return {"counts": counts, "precision": precision, "recall": recall}
 
 
 # ------------------------------------------------------ main path B: width
@@ -360,7 +461,7 @@ def phase_width(dev, agree: Agreement, ranks=64, events=4096, F=WIDTH_F, steps=2
     g = torch.Generator(device=dev).manual_seed(SEED)
     table = T.init_table(F, device=dev)
     runs = []
-    mo.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     for step in range(steps):
         fids = torch.randint(0, F, (ranks, events), generator=g, device=dev, dtype=torch.int32)
@@ -375,7 +476,8 @@ def phase_width(dev, agree: Agreement, ranks=64, events=4096, F=WIDTH_F, steps=2
     if dev.type == "cuda":
         torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
-    launches = mo.launches
+    counts = read_counts()
+    launches = counts["moments_and_labels"]
 
     for step, (before, fids, durs, labels, pos) in enumerate(runs):
         sums = ops.stats_to_sums(before).contiguous()
@@ -394,7 +496,250 @@ def phase_width(dev, agree: Agreement, ranks=64, events=4096, F=WIDTH_F, steps=2
         f"(sums rtol {SUMS_RTOL}, min/max rtol {EXT_RTOL}, labels exact), all "
         f"{outliers * (steps - warmup)} injected outliers labelled; path {path_s:.3f} s "
         f"({path_s / steps * 1e3:.2f} ms/step); moments launches {launches}")
-    return {"launches": launches}
+    return {"counts": counts}
+
+
+# -------------------------------------------------------------------- flash
+class FlashAgreement:
+    """Largest kernel-vs-plain errors over every flash comparison; the
+    relative error is taken where the plain output is at least 0.01."""
+
+    def __init__(self):
+        self.max_abs = 0.0
+        self.max_rel = 0.0
+
+    def check(self, what, got, want, tol):
+        import torch
+
+        g, w = got.double().cpu(), want.double().cpu()
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: shape {tuple(g.shape)} or non-finite output")
+        err = (g - w).abs()
+        if bool((err > tol + tol * w.abs()).any()):
+            raise AssertionError(f"{what}: beyond rtol = atol = {tol}, max abs err "
+                                 f"{float(err.max())}")
+        big = w.abs() >= 0.01
+        self.max_abs = max(self.max_abs, float(err.max()))
+        if bool(big.any()):
+            self.max_rel = max(self.max_rel, float((err[big] / w.abs()[big]).max()))
+
+
+def _flash_inputs(dev, case, seed):
+    import torch
+
+    B, Sq, Sk, H, KV, hd, _, _, _, dtype = case
+    rng = np.random.default_rng(seed)
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    return [torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(dev, dt)
+            for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))]
+
+
+def flash_bound(case) -> dict:
+    """The least time for one call at ``case``: the QK^T and PV products of
+    the live (query, key) pairs over the bf16 tensor-core rate, against each
+    input read once and the output written once over the memory rate."""
+    B, Sq, Sk, H, KV, hd, causal, window, _, dtype = case
+    q = np.arange(Sq)[:, None]
+    k = np.arange(Sk)[None, :]
+    live = np.ones((Sq, Sk), bool)
+    if causal:
+        live &= k <= q
+    if window > 0:
+        live &= (q - k) < window
+    flops = 4.0 * hd * B * H * float(live.sum())  # 2 per multiply-add, two products
+    itemsize = 2 if dtype == "bfloat16" else 4
+    nbytes = itemsize * (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd)
+    rate = H100_BF16_OPS_PER_S if dtype == "bfloat16" else H100_F32_OPS_PER_S
+    ops_ms, bytes_ms = flops / rate * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def phase_flash(dev, agree: FlashAgreement) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    def compare(what, case, seed, kv_len=None):
+        q, k, v = _flash_inputs(dev, case, seed)
+        kw = dict(causal=case[6], window=case[7], cap=case[8], kv_len=kv_len)
+        got = ops.flash_attention(q, k, v, **kw)
+        agree.check(what, got, flash_attention_ref(q, k, v, **kw), FLASH_TOL[case[9]])
+        return q, k, v, got
+
+    for i, case in enumerate(FLASH_CASES):
+        compare(f"flash case {i} {case}", case, case[5] + case[1] + case[3])
+    compare("flash kv_len=77", (1, 64, 128, 2, 2, 64, False, 0, 0.0, "float32"), 1, kv_len=77)
+    for case in FLASH_RAGGED:
+        compare(f"flash ragged {case}", case, sum(case[1:3]))
+    rng = np.random.default_rng(SEED)
+    for i in range(FLASH_SWEEP):
+        KV, G = int(rng.choice([1, 2, 4])), int(rng.choice([1, 2, 4, 8]))
+        case = (int(rng.integers(1, 4)), int(rng.integers(1, 300)), int(rng.integers(1, 300)),
+                KV * G, KV, int(rng.choice([16, 64, 80, 120, 128, 200, 256])),
+                bool(rng.integers(0, 2)), int(rng.choice([0, 0, 1, 7, 64, 150])),
+                float(rng.choice([0.0, 0.0, 5.0, 30.0])), str(rng.choice(["float32", "bfloat16"])))
+        kv_len = None if rng.random() < 0.6 else int(rng.integers(0, case[2] + 5))
+        compare(f"flash sweep {i} {case} kv_len={kv_len}", case, i, kv_len=kv_len)
+    log(f"flash: {len(FLASH_CASES)} test shapes, kv_len=77, {len(FLASH_RAGGED)} ragged shapes "
+        f"and {FLASH_SWEEP} random shapes within 2e-5 (f32) / 2e-2 (bf16) of the plain version")
+
+    q, k, v, out = compare("flash full width float32", FLASH_FULL[:9] + ("float32",), SEED)
+    f32_err = float((out - flash_attention_ref(q, k, v, causal=True)).abs().max())
+    q, k, v, out = compare("flash full width", FLASH_FULL, SEED)
+    again = fa.flash_attention(q, k, v, causal=True)
+    if not torch.equal(out.view(torch.int16), again.view(torch.int16)):
+        raise AssertionError("flash: two launches on the same input gave different results")
+    log(f"flash: full width {FLASH_FULL} ok (and in float32 within 2e-5, max abs err "
+        f"{f32_err:.3g}), two launches bitwise equal; max abs err "
+        f"{agree.max_abs:.3g}, max rel err {agree.max_rel:.3g}")
+
+    launch = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # (B, heads, S, hd)
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib = library().transpose(1, 2)
+    agree_lib = float((lib.float() - out.float()).abs().max())
+    timing = {
+        "ms": cuda_ms(launch, iters=20),
+        "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True), iters=5),
+        "library_ms": cuda_ms(library, iters=20),
+        "host_ms": host_ms(launch, iters=20),
+        "device_ms": device_ms_by_kernel(launch, iters=5),
+        "library_max_abs_diff": agree_lib,
+        **flash_bound(FLASH_FULL),
+    }
+    log(f"flash: full width kernel {timing['ms'] * 1e3:.1f} us/call, plain "
+        f"{timing['plain_ms'] * 1e3:.1f} us, scaled_dot_product_attention "
+        f"{timing['library_ms'] * 1e3:.1f} us (max abs diff to the kernel {agree_lib:.3g}), "
+        f"bound {timing['bound_ms'] * 1e3:.2f} us ({timing['bound_by']}: "
+        f"{timing['flops'] / 1e9:.2f} GFLOP, {timing['bytes'] / 1e6:.1f} MB); host enqueue "
+        f"{timing['host_ms'] * 1e3:.1f} us; device by kernel (torch.profiler, us/launch): "
+        + (", ".join(f"{n} {m * 1e3:.1f}" for n, m in timing["device_ms"].items())
+           or "not measured (no device time recorded)"))
+    return timing
+
+
+# ----------------------------------------------------- main path C: serve
+def device_breakdown(fn) -> dict:
+    """One profiled call of ``fn``: device ms by kernel (top 8), the sum, the
+    host wall ms around it, the share of that wall time the device spent in
+    no kernel (one stream, so kernels do not overlap), and the number of
+    top-level aten ops the host dispatched."""
+    by_kernel, wall_ms, ops = profiled(fn, 1)
+    busy = sum(ms for ms, _ in by_kernel.values())
+    top = dict(sorted(((k, ms) for k, (ms, _) in by_kernel.items()), key=lambda kv: -kv[1])[:8])
+    return {"wall_ms": wall_ms, "device_ms": busy, "top": top, "host_ops": int(ops),
+            "idle_share": (1.0 - busy / wall_ms) if busy > 0 else None}
+
+
+def phase_serve(dev) -> dict:
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.common import init_params
+
+    cfg = configs.get_config(SERVE["arch"])
+    params = init_params(cfg, SEED, dev)
+    param_bytes = sum(t.numel() * t.element_size() for t in
+                      [params["embed"], params["final_ln"]]
+                      + [x for layer in params["layers"] for x in layer.values()])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    out = serve(smoke=False, seed=SEED, params=params, device=dev, **SERVE)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    waves = -(-SERVE["n_requests"] // SERVE["batch"])
+    want_launches = cfg.n_layers * waves
+    mon = out["monitor"]
+    if out["requests"] != SERVE["n_requests"] or \
+            out["tokens"] != SERVE["n_requests"] * SERVE["max_new"]:
+        raise AssertionError(f"serve: {out['requests']} requests, {out['tokens']} tokens")
+    if mon["frames"] <= 0 or mon["events"] <= 0:
+        raise AssertionError(f"serve: empty monitor summary {mon}")
+    if counts["flash_attention"] != want_launches:
+        raise AssertionError(f"serve: {counts['flash_attention']} flash launches, expected "
+                             f"{want_launches} ({cfg.n_layers} layers x {waves} waves)")
+    log(f"serve: {cfg.name} full width, {cfg.n_params():,} parameters ({param_bytes / 1e9:.2f} "
+        f"GB float32 master); {out['requests']} requests, {out['tokens']} tokens in "
+        f"{serve_s:.2f} s, {out['tok_per_s']:.1f} tok/s; peak memory {peak / 1e9:.2f} GB; "
+        f"flash launches {counts['flash_attention']}; monitor frames {mon['frames']} events "
+        f"{mon['events']} anomalies {mon['anomalies']} ps_updates {mon['ps_updates']} "
+        f"stragglers {mon['stragglers']}; samples {out['samples']}")
+
+    # The same weights, one wave timed outside the driver (CUDA events).
+    cparams = M.compute_params(cfg, params)
+    del params
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab, (SERVE["batch"], SERVE["prompt_len"]), generator=g,
+                         device=dev, dtype=torch.int32)
+    max_seq = SERVE["prompt_len"] + SERVE["max_new"]
+    prefill = lambda: M.prefill(cfg, cparams, {"tokens": toks}, max_seq=max_seq)  # noqa: E731
+    logits, cache = prefill()
+    if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
+        raise AssertionError("serve: non-finite prefill logits")
+    prefill_ms = cuda_ms(prefill, iters=3, warmup=1)
+    nxt = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    steps = 16
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(steps):
+        logits, cache = M.decode_step(cfg, cparams, cache, nxt)
+        nxt = torch.argmax(logits[:, 0], -1)[:, None].to(torch.int32)
+    end.record()
+    end.synchronize()
+    decode_ms = start.elapsed_time(end) / steps
+    if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
+        raise AssertionError("serve: non-finite decode logits")
+    _, cache = prefill()
+    prof_prefill = device_breakdown(prefill)
+    prof_decode = device_breakdown(lambda: M.decode_step(cfg, cparams, cache, nxt))
+    log(f"serve: prefill {prefill_ms:.2f} ms per wave of {SERVE['batch']} x "
+        f"{SERVE['prompt_len']} tokens, decode {decode_ms:.2f} ms per step of "
+        f"{SERVE['batch']} tokens (CUDA events, steps after the serve run)")
+    for name, prof in (("prefill", prof_prefill), ("decode step", prof_decode)):
+        log(f"serve: {name} traced: {prof['host_ops']} top-level aten ops, wall "
+            f"{prof['wall_ms']:.2f} ms, device busy {prof['device_ms']:.2f} ms, idle share "
+            + (f"{prof['idle_share']:.3f}" if prof["idle_share"] is not None
+               else "not measured")
+            + "; top kernels (ms): "
+            + ", ".join(f"{n} {m:.3f}" for n, m in prof["top"].items()))
+    del cparams, cache, logits
+
+    # float32 smoke gemma-2b, same weights: the card (kernel) against the CPU (plain).
+    smoke = dataclasses.replace(configs.smoke(SERVE["arch"]), compute_dtype=torch.float32)
+    p_cpu = init_params(smoke, SEED, "cpu")
+    p_dev = {**{k: v.to(dev) for k, v in p_cpu.items() if k != "layers"},
+             "layers": [{k: v.to(dev) for k, v in layer.items()} for layer in p_cpu["layers"]]}
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, smoke.vocab, (2, 44)).astype(np.int32))
+    runs = {}
+    for where, p in (("card", p_dev), ("cpu", p_cpu)):
+        t = toks.to(p["embed"].device)
+        logits, cache = M.prefill(smoke, p, {"tokens": t[:, :40]}, max_seq=44)
+        outs = [logits[..., :smoke.vocab].cpu()]
+        for i in range(40, 44):
+            logits, cache = M.decode_step(smoke, p, cache, t[:, i:i + 1])
+            outs.append(logits[..., :smoke.vocab].cpu())
+        runs[where] = torch.cat(outs, dim=1)
+    smoke_err = float((runs["card"] - runs["cpu"]).abs().max())
+    np.testing.assert_allclose(runs["card"].numpy(), runs["cpu"].numpy(), rtol=1e-4, atol=1e-3,
+                               err_msg="serve: float32 smoke logits, card vs CPU")
+    log(f"serve: float32 smoke {smoke.name} prefill(40) + 4 decode steps, card (kernel) vs "
+        f"CPU (plain): logits within rtol 1e-4 / atol 1e-3, max abs diff {smoke_err:.3g}")
+    return {"counts": counts, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "tok_per_s": out["tok_per_s"], "peak_bytes": peak, "param_bytes": param_bytes}
 
 
 # --------------------------------------------------------------------- main
@@ -414,6 +759,8 @@ def main() -> int:
     env = phase_env()
     agree = Agreement()
     timing = phase_kernel(dev, agree)
+    flash_agree = FlashAgreement()
+    flash = phase_flash(dev, flash_agree)
 
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0,
@@ -423,17 +770,25 @@ def main() -> int:
         finally:
             dist.destroy_process_group()
     width = phase_width(dev, agree)
+    served = phase_serve(dev)
 
-    launches = {"trace": trace["launches"], "width": width["launches"]}
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a main path never launched the moments kernel: {launches}")
+    paths = {"trace": trace["counts"], "width": width["counts"], "serve": served["counts"]}
+    needs = {"trace": "moments_and_labels", "width": "moments_and_labels",
+             "serve": "flash_attention"}
+    for path, name in needs.items():
+        if paths[path][name] <= 0:
+            raise AssertionError(f"main path {path} never launched {name}: {paths[path]}")
+
+    def by_path(name):
+        return {path: c[name] for path, c in paths.items()}
+
     kernels = [{
         "name": "moments_and_labels",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/moments.cu",
         "replaces": "src/repro/kernels/moments.py:46",
-        "launches": sum(launches.values()),
-        "launches_by_path": launches,
+        "launches": sum(by_path("moments_and_labels").values()),
+        "launches_by_path": by_path("moments_and_labels"),
         "max_abs_err": agree.max_abs,
         "max_rel_err": agree.max_rel,
         "labels_equal": True,  # every comparison above raised otherwise
@@ -446,6 +801,26 @@ def main() -> int:
         "host_ms": timing["host_ms"],
         "device_ms": timing["device_ms"],
         "trace_shape": timing["trace_shape"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:35",
+        "launches": sum(by_path("flash_attention").values()),
+        "launches_by_path": by_path("flash_attention"),
+        "max_abs_err": flash_agree.max_abs,
+        "max_rel_err": flash_agree.max_rel,
+        "ms": flash["ms"],
+        "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"],
+        "shape": dict(zip(("B", "Sq", "Sk", "H", "KV", "hd", "causal", "window", "cap",
+                           "dtype"), FLASH_FULL)),
+        "host_ms": flash["host_ms"],
+        "device_ms": flash["device_ms"],
+        "serve": {k: served[k] for k in ("prefill_ms", "decode_ms", "tok_per_s",
+                                         "peak_bytes", "param_bytes")},
     }]
     log(f"trace precision {trace['precision']:.4f} recall {trace['recall']:.4f}; "
         f"build {env['build_s']:.2f} s")

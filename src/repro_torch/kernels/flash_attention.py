@@ -1,0 +1,114 @@
+"""Forward flash attention (causal / GQA / sliding window / softcap) as a Hopper kernel.
+
+The CUDA kernel in ``csrc/flash_attention.cu`` replaces the Pallas TPU
+kernel ``repro/kernels/flash_attention.py:_flash_kernel``; its source note
+gives the bound and the design.  ``ref.flash_attention_ref`` is its plain
+PyTorch version.
+
+:func:`flash_attention` dispatches on the device of its inputs: CPU tensors
+take the plain version, CUDA tensors launch the kernel or raise.  It takes
+the head dims the kernel is built for (:data:`HEAD_DIMS`);
+``ops.flash_attention`` pads any other head dim up to one of them.  Unlike
+the Pallas wrapper it needs no sequence length to divide a tile: the kernel
+masks the ragged edges itself.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+from .ref import flash_attention_ref
+
+# Launches of the CUDA kernel made by flash_attention (never counts the
+# plain version).  chip_smoke.py zeroes it before a path and reads it after.
+launches = 0
+
+HEAD_DIMS = (64, 128, 256)  # the kernel's instances; ops pads up to one
+BLOCK_Q = BLOCK_K = 64  # query rows per CTA, key rows per kv tile
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+MAX_Q_TILES = 65535  # the grid's y extent: query tiles per (batch, head)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def smem_bytes(head_dim: int) -> int:
+    """Dynamic shared memory of one CTA (see csrc/flash_attention.cu)."""
+    return 4 * (3 * BLOCK_Q * (head_dim + 4) + BLOCK_Q * (BLOCK_K + 4))
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    fn = _build.library("flash_attention").flash_attention_launch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, f, f, i, p]
+    fn.restype = i
+    return fn
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise TypeError(f"q, k, v must be 4-D (B, S, heads, head_dim), got "
+                        f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k, v must share one dtype of float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    B, _, H, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"k and v must be (B, Sk, KV, {hd}) with B={B}, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    KV = k.shape[2]
+    if KV < 1 or H % KV:
+        raise ValueError(f"query heads {H} must be a multiple of kv heads {KV}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not one the kernel is built for {HEAD_DIMS}; "
+                         f"ops.flash_attention pads to one")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must lie on one device")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous")
+    if -(-q.shape[1] // BLOCK_Q) > MAX_Q_TILES:
+        raise ValueError(f"Sq {q.shape[1]} needs more than {MAX_Q_TILES} query tiles")
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Sk, KV, hd)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    cap: float = 0.0,
+    scale: Optional[float] = None,
+    kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """-> (B, Sq, H, hd) in q's dtype; running (m, l, acc) in float32."""
+    _check(q, k, v)
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    kv_len = Sk if kv_len is None else int(kv_len)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap,
+                                   scale=scale, kv_len=kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start on a 16-byte boundary")
+
+    global launches
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, KV, hd,
+            _DTYPES[q.dtype], int(bool(causal)), int(window), float(cap), float(scale),
+            max(kv_len, 0))
+    with torch.cuda.device(q.device):
+        err = _launcher()(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash attention kernel launch failed with CUDA error {err}")
+    launches += 1
+    return out

@@ -1,18 +1,22 @@
 """Public wrappers for the port's kernels.
 
-``ops`` does the shape hygiene (dtype and contiguity of the event stream)
-and the format conversion between the kernel's raw-sums table
-(n, Σx, Σx², min, max) and the torch_ad (n, mean, M2, min, max) layout.
-Each wrapper runs the kernel for CUDA tensors and its plain version for
-CPU tensors (see ``moments.moments_and_labels``).
+``ops`` does the shape hygiene (dtype and contiguity of the event stream,
+head-dim padding for attention) and the format conversion between the
+moments kernel's raw-sums table (n, Σx, Σx², min, max) and the torch_ad
+(n, mean, M2, min, max) layout.  Each wrapper runs the kernel for CUDA
+tensors and its plain version for CPU tensors (see
+``moments.moments_and_labels`` and ``flash_attention.flash_attention``).
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..core.torch_ad import merge_tables
+from . import flash_attention as _fa
 from . import moments as _mo
 
 
@@ -63,3 +67,33 @@ def moments_table(
     zero = torch.zeros((F, 5), dtype=torch.float32, device=f.device)
     delta, _ = _mo.moments_and_labels(f, d, zero, fid_offset=fid_offset)
     return sums_to_stats(delta)
+
+
+# ----------------------------------------------------------- flash attention
+def padded_head_dim(hd: int) -> int:
+    """The smallest head dim the kernel is built for that holds ``hd``."""
+    for width in _fa.HEAD_DIMS:
+        if hd <= width:
+            return width
+    raise ValueError(f"head_dim {hd} exceeds the kernel's largest, {_fa.HEAD_DIMS[-1]}")
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    causal: bool = True, window: int = 0, cap: float = 0.0,
+    scale: Optional[float] = None, kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Kernel-backed attention; q (B,Sq,H,hd), k/v (B,Sk,KV,hd) -> (B,Sq,H,hd).
+
+    The head dim is zero-padded up to one the kernel is built for (the
+    JAX wrapper pads to the TPU's 128 lanes): padded q/k columns leave the
+    scores unchanged and padded v columns are cropped from the output.
+    """
+    hd = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    pad = padded_head_dim(hd) - hd
+    if pad:
+        q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
+    out = _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+                              window=window, cap=cap, scale=scale, kv_len=kv_len)
+    return out[..., :hd] if pad else out

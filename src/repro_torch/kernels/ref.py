@@ -6,7 +6,8 @@ and ``chip_smoke.py`` holds each kernel against it on the card.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -58,3 +59,44 @@ def moments_and_labels_ref(
     out &= n_p >= torch.tensor(min_count, dtype=torch.float32, device=dev)
     out &= valid
     return delta, out.to(torch.int8)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    cap: float = 0.0,
+    scale: Optional[float] = None,
+    kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Materialised-score GQA attention.  q (B,Sq,H,hd), k/v (B,Sk,KV,hd).
+
+    The twin of ``repro.kernels.ref.flash_attention_ref`` in float32, except
+    that it follows the kernel (``kernels/flash_attention.py``) on a row
+    with no live key: the kernel gives 0 there, where a softmax over
+    all-masked scores gives the mean of v.  The two agree on every row that
+    has at least one live key.
+    """
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, Sq, KV, G, hd).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    if cap > 0:
+        s = torch.tanh(s / cap) * cap
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    ok = kpos < (Sk if kv_len is None else kv_len)
+    if causal:
+        ok = ok & (kpos <= qpos)
+    if window > 0:
+        ok = ok & ((qpos - kpos) < window)
+    s = torch.where(ok, s, NEG)
+    p = torch.where(ok, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    out = torch.einsum("bkgqs,bskd->bkgqd", p, v.float()) / l
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, v.shape[-1]).to(q.dtype)

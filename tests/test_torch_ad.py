@@ -4,6 +4,7 @@ Inputs are made once with numpy from a seed and handed to both packages.
 Tolerances follow tests/test_jax_ad.py: counts and labels exact, mean
 rtol 1e-4 (atol 1e-3), M2 rtol 1e-3 (atol 1.0).
 """
+import ast
 import os
 import subprocess
 import sys
@@ -153,6 +154,33 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     r = subprocess.run([sys.executable, "-c", _ISOLATION_SCRIPT], capture_output=True,
                        text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(REPO / "src")})
     assert "ISOLATED" in r.stdout, r.stdout + r.stderr
+
+
+def _imported_modules(path):
+    """Every module an ``import`` or absolute ``from`` names anywhere in the
+    file, function and class bodies included (relative imports stay in
+    the package)."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_sources_import_no_jax_and_nothing_of_repro_at_any_depth():
+    """Importing every module (above) misses an import written inside a
+    function body; this reads the sources themselves."""
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+    walked = {str(f.relative_to(REPO / "src")).replace("/", ".")[:-3] for f in files[:-1]}
+    assert {"repro_torch.models.model", "repro_torch.kernels.flash_attention",
+            "repro_torch.launch.serve", "repro_torch.trace.monitor",
+            "repro_torch.core.ps", "repro_torch.core.provenance"} <= walked
+    # the check sees nested imports: a function-level one is caught
+    probe = REPO / "src" / "repro_torch" / "trace" / "monitor.py"
+    assert "repro_torch.fault.health" in set(_imported_modules(probe))
 
 
 # ------------------------------------------------------- distributed step
