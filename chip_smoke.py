@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's anomaly-detection path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one GPU and check them.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
@@ -24,19 +24,30 @@ non-zero):
            S 1024, H 8, KV 1, hd 256, causal, bf16, and again in float32),
            with a determinism check and timings beside one
            scaled_dot_product_attention call (a yardstick only);
+  scan     the selective-scan kernel against its plain PyTorch version on
+           the card: the repo's 4 test shapes, ragged shapes (S 1 and 77, d_inner
+           no multiple of a CTA's channels, d_state 1, 3, 4, 8 and 32), 40
+           random shapes and the full-width falcon-mamba-7b prefill shape
+           (B 4, S 1024, d_inner 8192, d_state 16), with a determinism check
+           and timings;
   serve    main path C: repro_torch.launch.serve at gemma-2b's published
            width (8 requests of 1024 prompt tokens, 32 new tokens each, in
            waves of 4) with the port's ChimbukoMonitor; then the float32
            gemma-2b smoke model through prefill and decode on the card (the
            kernel) and on the CPU (the plain version), logits held together;
+  serve_ssm  main path D: the same traffic and checks on falcon-mamba-7b at
+           its published width (64 Mamba layers, no attention), whose every
+           prefill layer runs the scan kernel;
 
-then one JSON line describing every ported kernel, and last
+then the script's wall time, the card's name and power limit, one JSON line
+describing every ported kernel, and last
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 2 and prints
 no result.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -78,7 +89,15 @@ FLASH_RAGGED = [  # shapes the Pallas wrapper refuses; the kernel masks the edge
 FLASH_FULL = (4, 1024, 1024, 8, 1, 256, True, 0, 0.0, "bfloat16")  # gemma-2b prefill wave
 FLASH_SWEEP = 100  # random shapes: GQA groups, head dims, ragged lengths, masks, dtypes
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:88
-SERVE = dict(arch="gemma-2b", n_requests=8, batch=4, prompt_len=1024, max_new=32)
+SCAN_CASES = [(1, 64, 16, 4), (2, 128, 64, 16), (1, 256, 32, 16),  # test_kernels.py:120-122
+              (2, 128, 32, 8)]  # test_kernels.py:140: (B, S, d_inner, d_state)
+SCAN_RAGGED = [(2, 1, 16, 16), (1, 77, 32, 16), (2, 33, 50, 16), (1, 40, 24, 3),
+               (2, 29, 37, 4), (1, 45, 70, 8), (1, 20, 9, 1), (1, 12, 5, 32)]
+SCAN_SWEEP = 40  # random shapes: batch, ragged S and d_inner, every d_state up to 32
+SCAN_FULL = (4, 1024, 8192, 16)  # falcon-mamba-7b prefill wave: B, S, d_inner, d_state
+SCAN_TOL = 1e-5  # tests/test_kernels.py:133-134
+SCAN_OPS_PER_STATE = 4  # h = a*h + b (2), h*C and its share of the sum over st (2)
+SERVE = dict(n_requests=8, batch=4, prompt_len=1024, max_new=32)
 
 
 def log(msg: str) -> None:
@@ -121,20 +140,23 @@ class Agreement:
         self.max_rel = max(self.max_rel, float(rel[seen].max()) if seen.any() else 0.0)
 
 
-def zero_counts() -> None:
-    """Set every kernel wrapper's launch count to 0 (before a main path)."""
+def _wrappers() -> dict:
+    """Each kernel's wrapper module, by kernel name."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import moments as mo
 
-    mo.launches = 0
-    fa.launches = 0
+    return {"moments_and_labels": mo, "flash_attention": fa, "mamba_scan": ms}
+
+
+def zero_counts() -> None:
+    """Set every kernel wrapper's launch count to 0 (before a main path)."""
+    for mod in _wrappers().values():
+        mod.launches = 0
 
 
 def read_counts() -> dict:
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import moments as mo
-
-    return {"moments_and_labels": mo.launches, "flash_attention": fa.launches}
+    return {name: mod.launches for name, mod in _wrappers().items()}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -168,7 +190,7 @@ def host_ms(fn, iters: int) -> float:
 
 # The name torch.profiler gives each kernel of the port, by wrapper count.
 PROFILER_NAMES = {"moments_and_labels": ("moments_pass1", "moments_pass2"),
-                  "flash_attention": ("flash_fwd",)}
+                  "flash_attention": ("flash_fwd",), "mamba_scan": ("mamba_scan_fwd",)}
 
 
 def _profile(fn, calls: int):
@@ -500,9 +522,10 @@ def phase_width(dev, agree: Agreement, ranks=64, events=4096, F=WIDTH_F, steps=2
 
 
 # -------------------------------------------------------------------- flash
-class FlashAgreement:
-    """Largest kernel-vs-plain errors over every flash comparison; the
-    relative error is taken where the plain output is at least 0.01."""
+class OutputAgreement:
+    """Largest kernel-vs-plain errors over every comparison of one kernel's
+    outputs; the relative error is taken where the plain output is at least
+    0.01."""
 
     def __init__(self):
         self.max_abs = 0.0
@@ -556,7 +579,7 @@ def flash_bound(case) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def phase_flash(dev, agree: FlashAgreement) -> dict:
+def phase_flash(dev, agree: OutputAgreement) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -624,7 +647,95 @@ def phase_flash(dev, agree: FlashAgreement) -> dict:
     return timing
 
 
-# ----------------------------------------------------- main path C: serve
+# --------------------------------------------------------------------- scan
+def _scan_inputs(dev, shape, seed):
+    """a = exp(-U(0.05, 2)), b and C ~ N(0, 1), as tests/test_kernels.py draws them."""
+    import torch
+
+    B, S, di, st = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.empty((B, S, di, st), device=dev).uniform_(0.05, 2.0, generator=g).neg_().exp_()
+    b = torch.randn((B, S, di, st), generator=g, device=dev)
+    C = torch.randn((B, S, st), generator=g, device=dev)
+    return a, b, C
+
+
+def scan_bound(shape) -> dict:
+    """The least time for one call at ``shape``: a and b read once, C read
+    once, y and h_last written once over the memory rate, against
+    SCAN_OPS_PER_STATE float32 operations per state element and step."""
+    B, S, di, st = shape
+    nbytes = 4 * (2 * B * S * di * st + B * S * st + B * S * di + B * di * st)
+    flops = float(SCAN_OPS_PER_STATE * B * S * di * st)
+    ops_ms, bytes_ms = flops / H100_F32_OPS_PER_S * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def phase_scan(dev, agree: OutputAgreement) -> dict:
+    import torch
+
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import mamba_scan_ref
+
+    h_equal = []  # the kernel's state against the plain version's, bitwise
+
+    def compare(what, shape, seed):
+        a, b, C = _scan_inputs(dev, shape, seed)
+        y, h = ops.mamba_scan(a, b, C)
+        y_p, h_p = mamba_scan_ref(a, b, C)
+        agree.check(f"{what} y", y, y_p, SCAN_TOL)
+        agree.check(f"{what} h_last", h, h_p, SCAN_TOL)
+        h_equal.append(torch.equal(h, h_p))
+        return a, b, C, y, h
+
+    for i, shape in enumerate(SCAN_CASES):
+        compare(f"scan case {i} {shape}", shape, i)
+    for shape in SCAN_RAGGED:
+        compare(f"scan ragged {shape}", shape, sum(shape))
+    rng = np.random.default_rng(SEED)
+    for i in range(SCAN_SWEEP):
+        shape = (int(rng.integers(1, 5)), int(rng.integers(1, 300)), int(rng.integers(1, 400)),
+                 int(rng.integers(1, 33)))
+        compare(f"scan sweep {i} {shape}", shape, 100 + i)
+    log(f"scan: {len(SCAN_CASES)} test shapes, {len(SCAN_RAGGED)} ragged shapes and "
+        f"{SCAN_SWEEP} random shapes within {SCAN_TOL} of the plain version")
+
+    a, b, C, y, h = compare(f"scan full width {SCAN_FULL}", SCAN_FULL, SEED)
+    y2, h2 = ms.mamba_scan(a, b, C)
+    if not (torch.equal(y.view(torch.int32), y2.view(torch.int32))
+            and torch.equal(h.view(torch.int32), h2.view(torch.int32))):
+        raise AssertionError("scan: two launches on the same input gave different results")
+    if not all(h_equal):  # both round a*h and +b apart: the states must agree exactly
+        raise AssertionError(f"scan: h_last differs from the plain version's in "
+                             f"{h_equal.count(False)} of {len(h_equal)} shapes")
+    log(f"scan: full width {SCAN_FULL} ok, two launches bitwise equal; max abs err "
+        f"{agree.max_abs:.3g}, max rel err {agree.max_rel:.3g}; h_last bitwise equal to the "
+        f"plain version's in all {len(h_equal)} shapes")
+    del y2, h2
+
+    launch = lambda: ms.mamba_scan(a, b, C)  # noqa: E731
+    timing = {
+        "ms": cuda_ms(launch, iters=20),
+        "plain_ms": cuda_ms(lambda: mamba_scan_ref(a, b, C), iters=2, warmup=1),
+        "host_ms": host_ms(launch, iters=20),
+        "device_ms": device_ms_by_kernel(launch, iters=5),
+        **scan_bound(SCAN_FULL),
+    }
+    log(f"scan: full width kernel {timing['ms'] * 1e3:.1f} us/call, plain "
+        f"{timing['plain_ms'] * 1e3:.1f} us, bound {timing['bound_ms'] * 1e3:.1f} us "
+        f"({timing['bound_by']}: {timing['bytes'] / 1e9:.3f} GB, {timing['flops'] / 1e9:.2f} "
+        f"GFLOP); host enqueue {timing['host_ms'] * 1e3:.1f} us; device by kernel "
+        f"(torch.profiler, us/launch): "
+        + (", ".join(f"{n} {m * 1e3:.1f}" for n, m in timing["device_ms"].items())
+           or "not measured (no device time recorded)")
+        + "; library: no single PyTorch call computes this function")
+    return timing
+
+
+# ------------------------------------------------ main paths C, D: serve
 def device_breakdown(fn) -> dict:
     """One profiled call of ``fn``: device ms by kernel (top 8), the sum, the
     host wall ms around it, the share of that wall time the device spent in
@@ -637,7 +748,9 @@ def device_breakdown(fn) -> dict:
             "idle_share": (1.0 - busy / wall_ms) if busy > 0 else None}
 
 
-def phase_serve(dev) -> dict:
+def phase_serve(dev, arch: str, kernel: str) -> dict:
+    """Serve ``arch`` at its published width through ``kernel``, which must
+    launch once per layer per prefill wave while no other kernel launches."""
     import torch
 
     from repro_torch import configs
@@ -645,7 +758,10 @@ def phase_serve(dev) -> dict:
     from repro_torch.models import model as M
     from repro_torch.models.common import init_params
 
-    cfg = configs.get_config(SERVE["arch"])
+    gc.collect()  # an earlier serve path's tensors are gone: free their cache
+    torch.cuda.empty_cache()
+    tag = f"serve[{arch}]"
+    cfg = configs.get_config(arch)
     params = init_params(cfg, SEED, dev)
     param_bytes = sum(t.numel() * t.element_size() for t in
                       [params["embed"], params["final_ln"]]
@@ -654,26 +770,26 @@ def phase_serve(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
     t0 = time.perf_counter()
-    out = serve(smoke=False, seed=SEED, params=params, device=dev, **SERVE)
+    out = serve(arch=arch, smoke=False, seed=SEED, params=params, device=dev, **SERVE)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     waves = -(-SERVE["n_requests"] // SERVE["batch"])
-    want_launches = cfg.n_layers * waves
+    want = {name: (cfg.n_layers * waves if name == kernel else 0) for name in counts}
     mon = out["monitor"]
     if out["requests"] != SERVE["n_requests"] or \
             out["tokens"] != SERVE["n_requests"] * SERVE["max_new"]:
-        raise AssertionError(f"serve: {out['requests']} requests, {out['tokens']} tokens")
+        raise AssertionError(f"{tag}: {out['requests']} requests, {out['tokens']} tokens")
     if mon["frames"] <= 0 or mon["events"] <= 0:
-        raise AssertionError(f"serve: empty monitor summary {mon}")
-    if counts["flash_attention"] != want_launches:
-        raise AssertionError(f"serve: {counts['flash_attention']} flash launches, expected "
-                             f"{want_launches} ({cfg.n_layers} layers x {waves} waves)")
-    log(f"serve: {cfg.name} full width, {cfg.n_params():,} parameters ({param_bytes / 1e9:.2f} "
+        raise AssertionError(f"{tag}: empty monitor summary {mon}")
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts}, expected {want} ({kernel} once per "
+                             f"layer per wave: {cfg.n_layers} layers x {waves} waves)")
+    log(f"{tag}: full width, {cfg.n_params():,} parameters ({param_bytes / 1e9:.2f} "
         f"GB float32 master); {out['requests']} requests, {out['tokens']} tokens in "
         f"{serve_s:.2f} s, {out['tok_per_s']:.1f} tok/s; peak memory {peak / 1e9:.2f} GB; "
-        f"flash launches {counts['flash_attention']}; monitor frames {mon['frames']} events "
+        f"launches {counts}; monitor frames {mon['frames']} events "
         f"{mon['events']} anomalies {mon['anomalies']} ps_updates {mon['ps_updates']} "
         f"stragglers {mon['stragglers']}; samples {out['samples']}")
 
@@ -687,7 +803,7 @@ def phase_serve(dev) -> dict:
     prefill = lambda: M.prefill(cfg, cparams, {"tokens": toks}, max_seq=max_seq)  # noqa: E731
     logits, cache = prefill()
     if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
-        raise AssertionError("serve: non-finite prefill logits")
+        raise AssertionError(f"{tag}: non-finite prefill logits")
     prefill_ms = cuda_ms(prefill, iters=3, warmup=1)
     nxt = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -701,15 +817,15 @@ def phase_serve(dev) -> dict:
     end.synchronize()
     decode_ms = start.elapsed_time(end) / steps
     if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
-        raise AssertionError("serve: non-finite decode logits")
+        raise AssertionError(f"{tag}: non-finite decode logits")
     _, cache = prefill()
     prof_prefill = device_breakdown(prefill)
     prof_decode = device_breakdown(lambda: M.decode_step(cfg, cparams, cache, nxt))
-    log(f"serve: prefill {prefill_ms:.2f} ms per wave of {SERVE['batch']} x "
+    log(f"{tag}: prefill {prefill_ms:.2f} ms per wave of {SERVE['batch']} x "
         f"{SERVE['prompt_len']} tokens, decode {decode_ms:.2f} ms per step of "
         f"{SERVE['batch']} tokens (CUDA events, steps after the serve run)")
     for name, prof in (("prefill", prof_prefill), ("decode step", prof_decode)):
-        log(f"serve: {name} traced: {prof['host_ops']} top-level aten ops, wall "
+        log(f"{tag}: {name} traced: {prof['host_ops']} top-level aten ops, wall "
             f"{prof['wall_ms']:.2f} ms, device busy {prof['device_ms']:.2f} ms, idle share "
             + (f"{prof['idle_share']:.3f}" if prof["idle_share"] is not None
                else "not measured")
@@ -717,8 +833,8 @@ def phase_serve(dev) -> dict:
             + ", ".join(f"{n} {m:.3f}" for n, m in prof["top"].items()))
     del cparams, cache, logits
 
-    # float32 smoke gemma-2b, same weights: the card (kernel) against the CPU (plain).
-    smoke = dataclasses.replace(configs.smoke(SERVE["arch"]), compute_dtype=torch.float32)
+    # float32 smoke model, same weights: the card (kernel) against the CPU (plain).
+    smoke = dataclasses.replace(configs.smoke(arch), compute_dtype=torch.float32)
     p_cpu = init_params(smoke, SEED, "cpu")
     p_dev = {**{k: v.to(dev) for k, v in p_cpu.items() if k != "layers"},
              "layers": [{k: v.to(dev) for k, v in layer.items()} for layer in p_cpu["layers"]]}
@@ -735,17 +851,20 @@ def phase_serve(dev) -> dict:
         runs[where] = torch.cat(outs, dim=1)
     smoke_err = float((runs["card"] - runs["cpu"]).abs().max())
     np.testing.assert_allclose(runs["card"].numpy(), runs["cpu"].numpy(), rtol=1e-4, atol=1e-3,
-                               err_msg="serve: float32 smoke logits, card vs CPU")
-    log(f"serve: float32 smoke {smoke.name} prefill(40) + 4 decode steps, card (kernel) vs "
+                               err_msg=f"{tag}: float32 smoke logits, card vs CPU")
+    log(f"{tag}: float32 smoke {smoke.name} prefill(40) + 4 decode steps, card (kernel) vs "
         f"CPU (plain): logits within rtol 1e-4 / atol 1e-3, max abs diff {smoke_err:.3g}")
     return {"counts": counts, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
-            "tok_per_s": out["tok_per_s"], "peak_bytes": peak, "param_bytes": param_bytes}
+            "tok_per_s": out["tok_per_s"], "peak_bytes": peak, "param_bytes": param_bytes,
+            "prefill_idle_share": prof_prefill["idle_share"],
+            "decode_idle_share": prof_decode["idle_share"], "smoke_max_abs_diff": smoke_err}
 
 
 # --------------------------------------------------------------------- main
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device; run this on a machine with a GPU",
               file=sys.stderr)
@@ -759,8 +878,10 @@ def main() -> int:
     env = phase_env()
     agree = Agreement()
     timing = phase_kernel(dev, agree)
-    flash_agree = FlashAgreement()
+    flash_agree = OutputAgreement()
     flash = phase_flash(dev, flash_agree)
+    scan_agree = OutputAgreement()
+    scan = phase_scan(dev, scan_agree)
 
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0,
@@ -770,17 +891,23 @@ def main() -> int:
         finally:
             dist.destroy_process_group()
     width = phase_width(dev, agree)
-    served = phase_serve(dev)
+    served = phase_serve(dev, "gemma-2b", "flash_attention")
+    served_ssm = phase_serve(dev, "falcon-mamba-7b", "mamba_scan")
 
-    paths = {"trace": trace["counts"], "width": width["counts"], "serve": served["counts"]}
+    paths = {"trace": trace["counts"], "width": width["counts"], "serve": served["counts"],
+             "serve_ssm": served_ssm["counts"]}
     needs = {"trace": "moments_and_labels", "width": "moments_and_labels",
-             "serve": "flash_attention"}
+             "serve": "flash_attention", "serve_ssm": "mamba_scan"}
     for path, name in needs.items():
         if paths[path][name] <= 0:
             raise AssertionError(f"main path {path} never launched {name}: {paths[path]}")
 
     def by_path(name):
         return {path: c[name] for path, c in paths.items()}
+
+    def serve_numbers(run):
+        return {k: run[k] for k in ("prefill_ms", "decode_ms", "tok_per_s", "peak_bytes",
+                                    "param_bytes", "prefill_idle_share", "decode_idle_share")}
 
     kernels = [{
         "name": "moments_and_labels",
@@ -819,11 +946,29 @@ def main() -> int:
                            "dtype"), FLASH_FULL)),
         "host_ms": flash["host_ms"],
         "device_ms": flash["device_ms"],
-        "serve": {k: served[k] for k in ("prefill_ms", "decode_ms", "tok_per_s",
-                                         "peak_bytes", "param_bytes")},
+        "serve": serve_numbers(served),
+    }, {
+        "name": "mamba_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:28",
+        "launches": sum(by_path("mamba_scan").values()),
+        "launches_by_path": by_path("mamba_scan"),
+        "max_abs_err": scan_agree.max_abs,
+        "max_rel_err": scan_agree.max_rel,
+        "ms": scan["ms"],
+        "plain_ms": scan["plain_ms"],
+        "bound_ms": scan["bound_ms"],
+        "bound_by": scan["bound_by"],
+        "library_ms": None,
+        "shape": dict(zip(("B", "S", "d_inner", "d_state"), SCAN_FULL)),
+        "host_ms": scan["host_ms"],
+        "device_ms": scan["device_ms"],
+        "h_last_bitwise_equal": True,  # phase_scan raised otherwise
+        "serve_ssm": serve_numbers(served_ssm),
     }]
     log(f"trace precision {trace['precision']:.4f} recall {trace['recall']:.4f}; "
-        f"build {env['build_s']:.2f} s")
+        f"build {env['build_s']:.2f} s; wall {time.perf_counter() - t_start:.1f} s")
     log(env["smi"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

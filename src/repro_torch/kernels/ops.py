@@ -1,11 +1,12 @@
 """Public wrappers for the port's kernels.
 
 ``ops`` does the shape hygiene (dtype and contiguity of the event stream,
-head-dim padding for attention) and the format conversion between the
-moments kernel's raw-sums table (n, Σx, Σx², min, max) and the torch_ad
-(n, mean, M2, min, max) layout.  Each wrapper runs the kernel for CUDA
-tensors and its plain version for CPU tensors (see
-``moments.moments_and_labels`` and ``flash_attention.flash_attention``).
+head-dim padding for attention, float32 scan elements) and the format
+conversion between the moments kernel's raw-sums table (n, Σx, Σx², min,
+max) and the torch_ad (n, mean, M2, min, max) layout.  Each wrapper runs
+the kernel for CUDA tensors and its plain version for CPU tensors (see
+``moments.moments_and_labels``, ``flash_attention.flash_attention`` and
+``mamba_scan.mamba_scan``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 
 from ..core.torch_ad import merge_tables
 from . import flash_attention as _fa
+from . import mamba_scan as _ms
 from . import moments as _mo
 
 
@@ -97,3 +99,17 @@ def flash_attention(
     out = _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
                               window=window, cap=cap, scale=scale, kv_len=kv_len)
     return out[..., :hd] if pad else out
+
+
+# ----------------------------------------------------------------- mamba scan
+def mamba_scan(
+    a: torch.Tensor, b: torch.Tensor, C: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel-backed selective scan; a/b (B,S,di,st), C (B,S,st) ->
+    (y (B,S,di), h_last (B,di,st)), float32.
+
+    The inputs are taken in float32 and contiguous, as the JAX wrapper casts
+    them; its ``block_d``/``chunk`` are TPU tiles with no counterpart here.
+    """
+    return _ms.mamba_scan(a.float().contiguous(), b.float().contiguous(),
+                          C.float().contiguous())

@@ -100,3 +100,24 @@ def flash_attention_ref(
     l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
     out = torch.einsum("bkgqs,bskd->bkgqd", p, v.float()) / l
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def mamba_scan_ref(
+    a: torch.Tensor, b: torch.Tensor, C: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential Mamba-1 recurrence: h_t = a_t·h_{t−1} + b_t, y_t = Σ_s h_t·C_t.
+
+    a/b (B,S,di,st), C (B,S,st) -> (y (B,S,di), h_last (B,di,st)), float32
+    from h_0 = 0.  The twin of ``repro.kernels.ref.mamba_scan_ref``; each
+    step rounds the product and the sum apart, as the kernel does, so the
+    two carry bitwise-equal states and differ in y only by the order of the
+    sum over st.
+    """
+    a, b, C = a.float(), b.float(), C.float()
+    B, S, di, st = a.shape
+    h = torch.zeros((B, di, st), dtype=torch.float32, device=a.device)
+    y = torch.empty((B, S, di), dtype=torch.float32, device=a.device)
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        y[:, t] = torch.einsum("bds,bs->bd", h, C[:, t])
+    return y, h

@@ -5,12 +5,15 @@ Continuous-batching-lite: a request queue fills decode slots; each decode
 step advances every active slot one token; finished requests free slots.
 Per-phase tracing (prefill/decode) streams to the port's own
 ``ChimbukoMonitor``; decode step-time anomalies (e.g. a slow host) surface
-exactly like the paper's workflow delays.  Prefill attention runs the
-hand-written flash kernel on the card.
+exactly like the paper's workflow delays.  On the card, prefill attention
+runs the hand-written flash kernel and a Mamba layer's prefill the
+hand-written selective-scan kernel; the serving loop is the same for both
+families (the decode cache is whatever ``prefill`` builds).
 
 Usage (on a CUDA card; ``--device cpu`` runs the plain versions):
   python -m repro_torch.launch.serve --arch gemma-2b --requests 8 --max-new 16
   python -m repro_torch.launch.serve --arch gemma-2b --full --prompt-len 1024 --max-new 32
+  python -m repro_torch.launch.serve --arch falcon-mamba-7b --full --prompt-len 1024 --max-new 32
 """
 from __future__ import annotations
 

@@ -27,10 +27,9 @@ FULL, SWA, MLA, MAMBA = "full", "swa", "mla", "mamba"
 # MLP kinds.
 DENSE, MOE, NONE = "dense", "moe", "none"
 
-# What the dense slice of the port does not cover yet, with its ROADMAP.md
-# queue 1 item: raised as NotImplementedError wherever it is asked for.
+# What the port does not cover yet, with its ROADMAP.md queue 1 item:
+# raised as NotImplementedError wherever it is asked for.
 UNPORTED = {
-    MAMBA: ("the Mamba mixer", 7),
     MOE: ("the MoE MLP", 8),
     MLA: ("the MLA mixer", 9),
     "mrope": ("M-RoPE positions", 9),
@@ -199,20 +198,43 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------- initializers
+# Init kinds of layer_param_shapes, as JAX's init_layer_params draws them:
+#   dense    normal × 1/√fan_in (conv_w's fan_in is d_conv: 1/√dc, as JAX)
+#   ones, zeros
+#   dt_bias  log(expm1(exp(U(log 1e-3, log 1e-1))))  (one uniform draw)
+#   a_log    log(tile(arange(1, st+1), (di, 1)))      (no draw; float32 log,
+#            which XLA's CPU log misses by one ulp at log(7))
+DT_MIN, DT_MAX = 1e-3, 1e-1
+
+
 def layer_param_shapes(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Tuple[Tuple[int, ...], str]]:
-    """name -> (per-layer shape, init) of one period position, init being
-    "dense" (normal × 1/√fan_in) or "ones"; the order is the draw order."""
-    if spec.mixer in (MLA, MAMBA):
-        raise unported(spec.mixer)
+    """name -> (per-layer shape, init kind) of one period position; the
+    order is JAX's dict order, which is also the draw order."""
+    if spec.mixer == MLA:
+        raise unported(MLA)
     if spec.mlp == MOE:
         raise unported(MOE)
-    d, H, KV, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    d = cfg.d_model
     out: Dict[str, Tuple[Tuple[int, ...], str]] = {"ln1": ((d,), "ones")}
-    out["wq"] = ((d, H * hd), "dense")
-    out["wk"] = ((d, KV * hd), "dense")
-    out["wv"] = ((d, KV * hd), "dense")
-    out["wo"] = ((H * hd, d), "dense")
+    if spec.mixer == MAMBA:
+        di, st, dc, dr = cfg.d_inner, cfg.ssm_d_state, cfg.ssm_d_conv, cfg.dt_rank
+        out["in_proj"] = ((d, 2 * di), "dense")
+        out["conv_w"] = ((dc, di), "dense")
+        out["conv_b"] = ((di,), "zeros")
+        out["x_proj"] = ((di, dr + 2 * st), "dense")
+        out["dt_proj"] = ((dr, di), "dense")
+        out["dt_bias"] = ((di,), "dt_bias")
+        out["A_log"] = ((di, st), "a_log")
+        out["D"] = ((di,), "ones")
+        out["out_proj"] = ((di, d), "dense")
+    else:
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        out["wq"] = ((d, H * hd), "dense")
+        out["wk"] = ((d, KV * hd), "dense")
+        out["wv"] = ((d, KV * hd), "dense")
+        out["wo"] = ((H * hd, d), "dense")
     if spec.mlp == DENSE:
+        f = cfg.d_ff
         out["ln2"] = ((d,), "ones")
         if cfg.activation in ("silu", "geglu"):
             out["w_gate"] = ((d, f), "dense")
@@ -247,6 +269,23 @@ def _dense_init(gen: torch.Generator, shape, dtype, device, scale: Optional[floa
     return x.mul_(std).to(dtype)
 
 
+def _init_leaf(gen: torch.Generator, kind: str, shape, dtype, device) -> torch.Tensor:
+    if kind == "dense":
+        return _dense_init(gen, shape, dtype, device)
+    if kind == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if kind == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if kind == "dt_bias":
+        lo, hi = math.log(DT_MIN), math.log(DT_MAX)
+        u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+        return torch.log(torch.expm1(torch.exp(u * (hi - lo) + lo))).to(dtype)
+    if kind == "a_log":
+        a = torch.arange(1, shape[-1] + 1, dtype=torch.float32, device=device)
+        return torch.log(a).repeat(*shape[:-1], 1).to(dtype)
+    raise ValueError(f"unknown init kind {kind!r}")
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     """Full parameter tree from ``seed``, drawn on ``device``.
 
@@ -266,12 +305,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         params["unembed"] = _dense_init(gen, (cfg.d_model, cfg.vocab_padded), dt, device)
-    params["layers"] = []
-    for spec in cfg.layout:
-        layer = {}
-        for name, (shape, init) in layer_param_shapes(cfg, spec).items():
-            full = (cfg.n_periods, *shape)
-            layer[name] = (_dense_init(gen, full, dt, device) if init == "dense"
-                           else torch.ones(full, dtype=dt, device=device))
-        params["layers"].append(layer)
+    params["layers"] = [
+        {name: _init_leaf(gen, kind, (cfg.n_periods, *shape), dt, device)
+         for name, (shape, kind) in layer_param_shapes(cfg, spec).items()}
+        for spec in cfg.layout
+    ]
     return params

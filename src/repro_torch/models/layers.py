@@ -231,6 +231,12 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|)),
+    rounded op by op as JAX rounds it (``F.softplus`` rounds once)."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
 def rounded(v: float, dtype: torch.dtype) -> float:
     """``v`` rounded to ``dtype``, as a Python float.
 

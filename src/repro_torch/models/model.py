@@ -1,14 +1,16 @@
-"""The dense model (port of ``repro.models.model``): forward, prefill, decode.
+"""The model (port of ``repro.models.model``): forward, prefill, decode.
 
 Modes:
-  forward      full-sequence pass (attention through ``layers.attention``)
-  prefill      sequence pass that also builds the KV cache; its attention
-               runs the hand-written flash kernel (``kernels.ops``)
+  forward      full-sequence pass (attention through ``layers.attention``,
+               Mamba through ``mamba.mamba_sequence``)
+  prefill      sequence pass that also builds the decode cache; its
+               attention runs the hand-written flash kernel and its Mamba
+               layers the hand-written scan kernel (``kernels.ops``)
   decode_step  single-token step against the cache
 
-The dense subset of the JAX model: FULL and SWA mixers, the dense MLP,
-``sandwich_norm``, ``emb_scale`` and both softcaps.  MLA, Mamba and MoE
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+The subset of the JAX model ported so far: FULL, SWA and MAMBA mixers, the
+dense MLP (or none), ``sandwich_norm``, ``emb_scale`` and both softcaps.
+MLA and MoE raise ``NotImplementedError`` naming their ROADMAP.md item.
 
 Differences of form, not of values, from the JAX package:
   * ``lax.scan`` over periods is a Python loop over layers; parameters and
@@ -31,6 +33,7 @@ import torch.nn.functional as F
 from ..device import resolve
 from ..kernels import ops
 from . import layers as L
+from . import mamba as MB
 from .common import MAMBA, MLA, MOE, NONE, SWA, LayerSpec, ModelConfig, unported
 
 
@@ -42,15 +45,15 @@ class ShardCtx:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the dense slice does not cover; every path starts
-    here (embed_tokens, init_cache)."""
+    """Raise for what the port does not cover yet; every path starts here
+    (embed_tokens, init_cache)."""
     if cfg.modality != "text":
         raise unported(cfg.modality)
     if cfg.pos == "mrope":
         raise unported("mrope")
     for spec in cfg.layout:
-        if spec.mixer in (MLA, MAMBA):
-            raise unported(spec.mixer)
+        if spec.mixer == MLA:
+            raise unported(MLA)
         if spec.mlp == MOE:
             raise unported(MOE)
 
@@ -176,7 +179,11 @@ def _mixer_residual(cfg, x, h, p):
 
 
 def apply_block(cfg, spec: LayerSpec, p, x, cos, sin) -> torch.Tensor:
-    h = _attn_seq(cfg, spec, p, L.rms_norm(x, p["ln1"], cfg.norm_eps), cos, sin)
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if spec.mixer == MAMBA:
+        h = MB.mamba_sequence(p, h, cfg)
+    else:
+        h = _attn_seq(cfg, spec, p, h, cos, sin)
     x = _mixer_residual(cfg, x, h, p)
     return _mlp_residual(cfg, spec, p, x)
 
@@ -206,6 +213,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> Dict[
     NP, dt = cfg.n_periods, cfg.compute_dtype
     per_pos: List[Dict[str, torch.Tensor]] = []
     for spec in cfg.layout:
+        if spec.mixer == MAMBA:
+            state = MB.init_mamba_state(cfg, batch, dt, device)
+            per_pos.append({k: v.new_zeros((NP, *v.shape)) for k, v in state.items()})
+            continue
         Sc = min(max_seq, cfg.window) if spec.mixer == SWA else max_seq
         shape = (NP, batch, Sc, cfg.n_kv_heads, cfg.head_dim)
         per_pos.append({
@@ -239,7 +250,13 @@ def _attn_decode(cfg, spec, p, h, cache, pos: int, cos, sin):
 
 
 def decode_block(cfg, spec, p, x, cache, pos: int, cos, sin):
-    h = _attn_decode(cfg, spec, p, L.rms_norm(x, p["ln1"], cfg.norm_eps), cache, pos, cos, sin)
+    """One layer of a decode step; ``cache`` (this layer's slice) is
+    updated in place."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if spec.mixer == MAMBA:
+        h, _ = MB.mamba_decode(p, h, cache, cfg)
+    else:
+        h = _attn_decode(cfg, spec, p, h, cache, pos, cos, sin)
     x = _mixer_residual(cfg, x, h, p)
     return _mlp_residual(cfg, spec, p, x)
 
@@ -265,9 +282,13 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
 
 
 def _expand_prefill_cache(cfg: ModelConfig, layer_caches, S: int, max_seq: int):
-    """Grow prefill caches to max_seq decode slots, ring-aligned for SWA."""
+    """Grow prefill caches to max_seq decode slots, ring-aligned for SWA;
+    Mamba states pass through."""
     out = []
     for spec, c in zip(cfg.layout, layer_caches):
+        if spec.mixer == MAMBA:
+            out.append(c)
+            continue
         w = c["k"].shape[2]  # stored length after prefill
         Sc = min(max_seq, cfg.window) if spec.mixer == SWA else max_seq
         if Sc == w:
@@ -295,28 +316,34 @@ def _expand_prefill_cache(cfg: ModelConfig, layer_caches, S: int, max_seq: int):
 
 def prefill(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx(),
             max_seq: Optional[int] = None):
-    """Sequence pass returning (last-position logits, populated cache)."""
+    """Sequence pass returning (last-position logits, populated cache).
+
+    A Mamba layer runs ``mamba.mamba_prefill``: one scan-kernel launch
+    gives its output and its decode state, where JAX computes the state in
+    a second pass (``_mamba_prefill_state``)."""
     x = embed_tokens(cfg, params, batch)
     B, S, _ = x.shape
     cos, sin = _rope_cos_sin(cfg, _positions(cfg, B, S, device=x.device), cfg.qk_dim)
-    per_pos: List[Dict[str, List[torch.Tensor]]] = [
-        {"k": [], "v": [], "kpos": []} for _ in cfg.layout
-    ]
+    per_pos: List[Dict[str, List[torch.Tensor]]] = [{} for _ in cfg.layout]
     for period in range(cfg.n_periods):
         for i, spec in enumerate(cfg.layout):
             p = _layer(params, i, period)
             h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-            h, (k, v) = _attn_seq_with_cache(cfg, spec, p, h, cos, sin)
-            if spec.mixer == SWA:
-                w = min(cfg.window, S)
-                k, v = k[:, -w:], v[:, -w:]
-                kpos = torch.arange(S - w, S, dtype=torch.int32, device=x.device)
+            if spec.mixer == MAMBA:
+                h, cch = MB.mamba_prefill(p, h, cfg)
             else:
-                kpos = torch.arange(S, dtype=torch.int32, device=x.device)
+                h, (k, v) = _attn_seq_with_cache(cfg, spec, p, h, cos, sin)
+                if spec.mixer == SWA:
+                    w = min(cfg.window, S)
+                    k, v = k[:, -w:], v[:, -w:]
+                    kpos = torch.arange(S - w, S, dtype=torch.int32, device=x.device)
+                else:
+                    kpos = torch.arange(S, dtype=torch.int32, device=x.device)
+                cch = {"k": k, "v": v, "kpos": kpos}
             x = _mixer_residual(cfg, x, h, p)
             x = _mlp_residual(cfg, spec, p, x)
-            for name, t in (("k", k), ("v", v), ("kpos", kpos)):
-                per_pos[i][name].append(t)
+            for name, t in cch.items():
+                per_pos[i].setdefault(name, []).append(t)
     layer_caches = [{name: torch.stack(ts) for name, ts in c.items()} for c in per_pos]
     logits = unembed(cfg, params, x[:, -1:])
     if max_seq is not None and max_seq != S:

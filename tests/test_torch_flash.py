@@ -188,7 +188,7 @@ def test_flash_source_builds_beside_moments_without_rehashing_it(tmp_path, monke
     flags: adding the flash kernel leaves the moments library's name as it was."""
     from repro_torch.kernels import _build
 
-    assert _build.sources() == ["flash_attention", "moments"]
+    assert _build.sources() == ["flash_attention", "mamba_scan", "moments"]
     moments = _build.target("moments")
     csrc = tmp_path / "csrc"
     csrc.mkdir()

@@ -1,4 +1,4 @@
-"""Port's dense model (repro_torch.models) vs the JAX model, on the CPU.
+"""Port's model (repro_torch.models: dense and Mamba) vs the JAX model, on the CPU.
 
 Weights come from JAX ``init_params`` through ``convert.params_from_jax``;
 tokens and activations are numpy from a seed.  In float32 compute the
@@ -38,7 +38,7 @@ from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models.common import init_params as t_init_params  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
-ARCHS = ["gemma-2b", "gemma2-2b", "h2o-danube-3-4b"]
+ARCHS = ["gemma-2b", "gemma2-2b", "h2o-danube-3-4b", "falcon-mamba-7b"]
 MODES = ["forward", "prefill", "decode"]
 B, S = 2, 40  # S > the smoke window (32): SWA masks and ring-aligns
 F32 = dict(rtol=1e-4, atol=1e-3)
@@ -352,7 +352,7 @@ def test_configs_are_copies_of_the_jax_configs():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("falcon-mamba-7b", "item 7"), ("granite-moe-1b-a400m", "item 8"),
+    ("jamba-v0.1-52b", "item 8"), ("granite-moe-1b-a400m", "item 8"),
     ("minicpm3-4b", "item 9"), ("qwen2-vl-2b", "item 9"), ("hubert-xlarge", "item 9"),
 ])
 def test_unported_families_raise_naming_their_roadmap_item(arch, item):

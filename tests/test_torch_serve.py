@@ -50,20 +50,22 @@ def test_serve_without_a_device_runs_on_cuda_or_raises():
         tserve.serve(arch="gemma-2b", n_requests=1, batch=1, prompt_len=4, max_new=1)
 
 
-def test_serve_matches_jax_with_carried_weights(monkeypatch):
-    """float32 gemma-2b smoke: identical generated tokens and monitor counts.
+@pytest.mark.parametrize("arch", ["gemma-2b", "falcon-mamba-7b"])
+def test_serve_matches_jax_with_carried_weights(arch, monkeypatch):
+    """float32 smoke model: identical generated tokens and monitor counts.
 
     3 requests in waves of 2 pad the second wave; max_new 6 keeps every
     token in ``samples``.  Anomaly counts are timing-free here: each
     function gets at most 2 × 6 = 12 samples per run, and the largest
     z-score n samples can reach is (n-1)/sqrt(n) < 6 = alpha for n < 37,
-    so both monitors must report 0.
+    so both monitors must report 0.  falcon-mamba's prefill runs the scan
+    kernel's plain version here, JAX's the chunked associative scan.
     """
-    f32 = {"j": dataclasses.replace(jconfigs.smoke("gemma-2b"), compute_dtype=jnp.float32),
-           "t": dataclasses.replace(tconfigs.smoke("gemma-2b"), compute_dtype=torch.float32)}
+    f32 = {"j": dataclasses.replace(jconfigs.smoke(arch), compute_dtype=jnp.float32),
+           "t": dataclasses.replace(tconfigs.smoke(arch), compute_dtype=torch.float32)}
     monkeypatch.setattr(jserve.configs, "smoke", lambda arch: f32["j"])
     monkeypatch.setattr(tserve.configs, "smoke", lambda arch: f32["t"])
-    kw = dict(arch="gemma-2b", n_requests=3, batch=2, prompt_len=12, max_new=6, seed=4)
+    kw = dict(arch=arch, n_requests=3, batch=2, prompt_len=12, max_new=6, seed=4)
     jp = jax.tree.map(np.asarray, j_init_params(f32["j"], jax.random.key(4)))
     jmon = JMonitor(num_funcs=16, min_samples=8)
     tmon = TMonitor(num_funcs=16, min_samples=8)
