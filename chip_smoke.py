@@ -20,10 +20,15 @@ non-zero):
            kernel and the plain version;
   flash    the flash-attention kernel against its plain PyTorch version on
            the card: the repo's 8 test shapes, the kv_len case, ragged shapes,
-           100 random shapes and the full-width gemma-2b prefill shape (B 4,
-           S 1024, H 8, KV 1, hd 256, causal, bf16, and again in float32),
-           with a determinism check and timings beside one
-           scaled_dot_product_attention call (a yardstick only);
+           100 random shapes, the full-width gemma-2b prefill shape (B 4,
+           S 1024, H 8, KV 1, hd 256, causal, bf16, and again in float32) and
+           the attention shapes of gemma2-2b and h2o-danube3-4b at one wave;
+           bf16 goes through the tensor-core instances (wgmma, TMA), float32
+           through the CUDA-core one.  Each instance's SASS instruction counts
+           (HGMMA and UTMALDG required in bf16) and ptxas line (no spills), a
+           determinism check, and timings of both dtypes at full width in
+           turns with one scaled_dot_product_attention call (a yardstick
+           only);
   scan     the selective-scan kernel against its plain PyTorch version on
            the card: the repo's 4 test shapes, ragged shapes (S 1 and 77, d_inner
            no multiple of a CTA's channels, d_state 1, 3, 4, 8 and 32), 40
@@ -34,7 +39,8 @@ non-zero):
            width (8 requests of 1024 prompt tokens, 32 new tokens each, in
            waves of 4) with the port's ChimbukoMonitor; then the float32
            gemma-2b smoke model through prefill and decode on the card (the
-           kernel) and on the CPU (the plain version), logits held together;
+           kernel) and on the CPU (the plain version), logits held together,
+           and the same in bf16 for the gemma-2b and gemma2-2b smoke models;
   serve_ssm  main path D: the same traffic and checks on falcon-mamba-7b at
            its published width (64 Mamba layers, no attention), whose every
            prefill layer runs the scan kernel;
@@ -49,10 +55,12 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -87,6 +95,11 @@ FLASH_RAGGED = [  # shapes the Pallas wrapper refuses; the kernel masks the edge
     (2, 100, 100, 4, 2, 256, True, 40, 30.0, "bfloat16"),
 ]
 FLASH_FULL = (4, 1024, 1024, 8, 1, 256, True, 0, 0.0, "bfloat16")  # gemma-2b prefill wave
+FLASH_MODELS = {  # the other bf16 configs' attention at one wave (configs/*.py)
+    "gemma2-2b": (4, 1024, 1024, 8, 4, 256, True, 4096, 50.0, "bfloat16"),
+    "h2o-danube3-4b": (4, 1024, 1024, 32, 8, 120, True, 4096, 0.0, "bfloat16"),
+}
+FLASH_SASS = ("HGMMA", "UTMALDG", "SYNCS", "MUFU", "FFMA", "FMUL", "LDS", "STS", "BAR")
 FLASH_SWEEP = 100  # random shapes: GQA groups, head dims, ragged lengths, masks, dtypes
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:88
 SCAN_CASES = [(1, 64, 16, 4), (2, 128, 64, 16), (1, 256, 32, 16),  # test_kernels.py:120-122
@@ -98,6 +111,8 @@ SCAN_FULL = (4, 1024, 8192, 16)  # falcon-mamba-7b prefill wave: B, S, d_inner, 
 SCAN_TOL = 1e-5  # tests/test_kernels.py:133-134
 SCAN_OPS_PER_STATE = 4  # h = a*h + b (2), h*C and its share of the sum over st (2)
 SERVE = dict(n_requests=8, batch=4, prompt_len=1024, max_new=32)
+SMOKE_TOL = {"float32": dict(rtol=1e-4, atol=1e-3),  # tests/test_torch_models.py:43
+             "bfloat16": dict(rtol=2e-2, atol=2e-2)}  # tests/test_torch_models.py:229
 
 
 def log(msg: str) -> None:
@@ -581,7 +596,6 @@ def flash_bound(case) -> dict:
 
 def phase_flash(dev, agree: OutputAgreement) -> dict:
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -590,13 +604,17 @@ def phase_flash(dev, agree: OutputAgreement) -> dict:
     def compare(what, case, seed, kv_len=None):
         q, k, v = _flash_inputs(dev, case, seed)
         kw = dict(causal=case[6], window=case[7], cap=case[8], kv_len=kv_len)
-        got = ops.flash_attention(q, k, v, **kw)
-        agree.check(what, got, flash_attention_ref(q, k, v, **kw), FLASH_TOL[case[9]])
-        return q, k, v, got
+        got, want = ops.flash_attention(q, k, v, **kw), flash_attention_ref(q, k, v, **kw)
+        agree.check(what, got, want, FLASH_TOL[case[9]])
+        return q, k, v, got, float((got.float() - want.float()).abs().max())
 
     for i, case in enumerate(FLASH_CASES):
         compare(f"flash case {i} {case}", case, case[5] + case[1] + case[3])
-    compare("flash kv_len=77", (1, 64, 128, 2, 2, 64, False, 0, 0.0, "float32"), 1, kv_len=77)
+    for dtype in ("float32", "bfloat16"):
+        compare(f"flash kv_len=77 {dtype}", (1, 64, 128, 2, 2, 64, False, 0, 0.0, dtype), 1,
+                kv_len=77)
+    compare("flash kv_len=0 bfloat16", (1, 64, 128, 2, 2, 64, False, 0, 0.0, "bfloat16"), 1,
+            kv_len=0)  # no live key: every row gives 0
     for case in FLASH_RAGGED:
         compare(f"flash ragged {case}", case, sum(case[1:3]))
     rng = np.random.default_rng(SEED)
@@ -608,43 +626,127 @@ def phase_flash(dev, agree: OutputAgreement) -> dict:
                 float(rng.choice([0.0, 0.0, 5.0, 30.0])), str(rng.choice(["float32", "bfloat16"])))
         kv_len = None if rng.random() < 0.6 else int(rng.integers(0, case[2] + 5))
         compare(f"flash sweep {i} {case} kv_len={kv_len}", case, i, kv_len=kv_len)
-    log(f"flash: {len(FLASH_CASES)} test shapes, kv_len=77, {len(FLASH_RAGGED)} ragged shapes "
+    log(f"flash: {len(FLASH_CASES)} test shapes, kv_len=77 (f32, bf16) and 0 (bf16), "
+        f"{len(FLASH_RAGGED)} ragged shapes "
         f"and {FLASH_SWEEP} random shapes within 2e-5 (f32) / 2e-2 (bf16) of the plain version")
 
-    q, k, v, out = compare("flash full width float32", FLASH_FULL[:9] + ("float32",), SEED)
-    f32_err = float((out - flash_attention_ref(q, k, v, causal=True)).abs().max())
-    q, k, v, out = compare("flash full width", FLASH_FULL, SEED)
+    f32_err = compare("flash full width float32", FLASH_FULL[:9] + ("float32",), SEED)[-1]
+    q, k, v, out, _ = compare("flash full width", FLASH_FULL, SEED)
     again = fa.flash_attention(q, k, v, causal=True)
     if not torch.equal(out.view(torch.int16), again.view(torch.int16)):
         raise AssertionError("flash: two launches on the same input gave different results")
     log(f"flash: full width {FLASH_FULL} ok (and in float32 within 2e-5, max abs err "
-        f"{f32_err:.3g}), two launches bitwise equal; max abs err "
-        f"{agree.max_abs:.3g}, max rel err {agree.max_rel:.3g}")
+        f"{f32_err:.3g}), two launches bitwise equal")
+    del q, k, v, out, again
+    for arch, case in FLASH_MODELS.items():
+        err = compare(f"flash {arch} {case}", case, SEED)[-1]
+        log(f"flash: {arch} attention at one wave {case} within 2e-2, max abs err {err:.3g}")
+    log(f"flash: every comparison: max abs err {agree.max_abs:.3g}, max rel err "
+        f"{agree.max_rel:.3g}")
 
+    built = flash_build_facts()
+    instances = {}
+    for dtype in ("bfloat16", "float32"):
+        timing = flash_timing(dev, FLASH_FULL[:9] + (dtype,))
+        timing["sass"] = {hd: f["sass"] for hd, f in built[dtype].items()}
+        timing["ptxas"] = {hd: f["ptxas"] for hd, f in built[dtype].items()}
+        instances[dtype] = timing
+        log(f"flash[{dtype}]: full width kernel {timing['ms'] * 1e3:.1f} us/call, "
+            f"scaled_dot_product_attention {timing['library_ms'] * 1e3:.1f} us (in turns: "
+            + ", ".join(f"{n} {t * 1e3:.1f}" for n, t in zip(
+                ("kernel", "sdpa", "sdpa", "kernel"), timing["turns_ms"]))
+            + f"; max abs diff to the kernel {timing['library_max_abs_diff']:.3g}), plain "
+            f"{timing['plain_ms'] * 1e3:.1f} us, bound {timing['bound_ms'] * 1e3:.2f} us "
+            f"({timing['bound_by']}: {timing['flops'] / 1e9:.2f} GFLOP, "
+            f"{timing['bytes'] / 1e6:.1f} MB); host enqueue {timing['host_ms'] * 1e3:.1f} us "
+            f"(its input checks {timing['host_check_ms'] * 1e3:.1f} us); "
+            "device by kernel (torch.profiler, us/launch): "
+            + (", ".join(f"{n} {m * 1e3:.1f}" for n, m in timing["device_ms"].items())
+               or "not measured (no device time recorded)")
+            + "; scaled_dot_product_attention's: "
+            + (", ".join(f"{n} {m * 1e3:.1f}" for n, m in timing["library_device_ms"].items())
+               or "not measured (no device time recorded)"))
+        for hd in sorted(built[dtype]):
+            log(f"flash[{dtype}] hd {hd}: ptxas {timing['ptxas'][hd]}; SASS "
+                + ", ".join(f"{op} {n}" for op, n in timing["sass"][hd].items()))
+    return {**instances["bfloat16"], "instances": instances}
+
+
+_FLASH_INSTANCE = re.compile(r"flash_fwd_(wgmma_bf16|simt_f32)ILi(\d+)E")
+_FLASH_DTYPE = {"wgmma_bf16": "bfloat16", "simt_f32": "float32"}
+_SASS_OP = re.compile(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", re.M)
+
+
+def flash_build_facts() -> dict:
+    """{dtype: {hd: {"ptxas": its -Xptxas -v line, "sass": instruction counts}}}
+    of every instance in the built flash library.  Raises if an instance is
+    missing, spills, or (bf16) lacks HGMMA (wgmma) or UTMALDG (TMA loads)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    facts, current = {}, None
+    for line in _build.build_log("flash_attention").splitlines():
+        m = _FLASH_INSTANCE.search(line)
+        if "Compiling entry function" in line and m:
+            current = facts.setdefault(_FLASH_DTYPE[m.group(1)], {}).setdefault(
+                int(m.group(2)), {"ptxas": [], "sass": {}})
+        elif current is not None and ("registers" in line or "spill" in line):
+            current["ptxas"].append(line.replace("ptxas info    :", "").strip())
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = run_text([str(cuobjdump), "-sass", str(_build.target("flash_attention"))])
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = _FLASH_INSTANCE.search(chunk.split("\n", 1)[0])
+        if m:
+            ops = Counter(_SASS_OP.findall(chunk))
+            facts[_FLASH_DTYPE[m.group(1)]][int(m.group(2))]["sass"] = {
+                **{op: ops[op] for op in FLASH_SASS}, "total": sum(ops.values())}
+    for dtype in ("bfloat16", "float32"):
+        for hd in fa.HEAD_DIMS:
+            f = facts.get(dtype, {}).get(hd)
+            if f is None or not f["sass"]:
+                raise AssertionError(f"flash: no {dtype} hd {hd} instance in the ptxas log or SASS")
+            f["ptxas"] = "; ".join(f["ptxas"])
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", f["ptxas"])
+            if spills is None or int(spills[1]) or int(spills[2]):
+                raise AssertionError(f"flash: {dtype} hd {hd} spills or has no ptxas line: "
+                                     f"{f['ptxas']}")
+            if dtype == "bfloat16" and not (f["sass"]["HGMMA"] and f["sass"]["UTMALDG"]):
+                raise AssertionError(f"flash: bf16 hd {hd} SASS lacks HGMMA or UTMALDG: "
+                                     f"{f['sass']}")
+    return facts
+
+
+def flash_timing(dev, case) -> dict:
+    """One instance at ``case`` (causal, no window or cap): CUDA-event ms per
+    call in turns with scaled_dot_product_attention (kernel, SDPA, SDPA,
+    kernel), the plain version's ms, host enqueue ms, device ms per launch of
+    the kernel and of SDPA's kernels (torch.profiler) and the bound.  Where
+    the host enqueue exceeds the device time, the CUDA-event time is the
+    host's, and the device times are the ones to compare."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    q, k, v = _flash_inputs(dev, case, SEED)
     launch = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # (B, heads, S, hd)
     library = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=True, enable_gqa=True)
-    lib = library().transpose(1, 2)
-    agree_lib = float((lib.float() - out.float()).abs().max())
-    timing = {
-        "ms": cuda_ms(launch, iters=20),
+    lib_diff = float((library().transpose(1, 2).float() - launch().float()).abs().max())
+    turns = [cuda_ms(fn, iters=20) for fn in (launch, library, library, launch)]
+    return {
+        "ms": (turns[0] + turns[3]) / 2,
+        "library_ms": (turns[1] + turns[2]) / 2,
+        "turns_ms": turns,
         "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True), iters=5),
-        "library_ms": cuda_ms(library, iters=20),
         "host_ms": host_ms(launch, iters=20),
+        "host_check_ms": host_ms(lambda: fa._check(q, k, v), iters=200),  # part of host_ms
         "device_ms": device_ms_by_kernel(launch, iters=5),
-        "library_max_abs_diff": agree_lib,
-        **flash_bound(FLASH_FULL),
+        "library_device_ms": device_ms_by_kernel(library, iters=5),
+        "library_max_abs_diff": lib_diff,
+        **flash_bound(case),
     }
-    log(f"flash: full width kernel {timing['ms'] * 1e3:.1f} us/call, plain "
-        f"{timing['plain_ms'] * 1e3:.1f} us, scaled_dot_product_attention "
-        f"{timing['library_ms'] * 1e3:.1f} us (max abs diff to the kernel {agree_lib:.3g}), "
-        f"bound {timing['bound_ms'] * 1e3:.2f} us ({timing['bound_by']}: "
-        f"{timing['flops'] / 1e9:.2f} GFLOP, {timing['bytes'] / 1e6:.1f} MB); host enqueue "
-        f"{timing['host_ms'] * 1e3:.1f} us; device by kernel (torch.profiler, us/launch): "
-        + (", ".join(f"{n} {m * 1e3:.1f}" for n, m in timing["device_ms"].items())
-           or "not measured (no device time recorded)"))
-    return timing
 
 
 # --------------------------------------------------------------------- scan
@@ -748,9 +850,11 @@ def device_breakdown(fn) -> dict:
             "idle_share": (1.0 - busy / wall_ms) if busy > 0 else None}
 
 
-def phase_serve(dev, arch: str, kernel: str) -> dict:
+def phase_serve(dev, arch: str, kernel: str, bf16_smokes=()) -> dict:
     """Serve ``arch`` at its published width through ``kernel``, which must
-    launch once per layer per prefill wave while no other kernel launches."""
+    launch once per layer per prefill wave while no other kernel launches;
+    then hold the float32 smoke model of ``arch``, and the bf16 smoke model
+    of each of ``bf16_smokes``, on the card against the CPU."""
     import torch
 
     from repro_torch import configs
@@ -833,31 +937,102 @@ def phase_serve(dev, arch: str, kernel: str) -> dict:
             + ", ".join(f"{n} {m:.3f}" for n, m in prof["top"].items()))
     del cparams, cache, logits
 
-    # float32 smoke model, same weights: the card (kernel) against the CPU (plain).
-    smoke = dataclasses.replace(configs.smoke(arch), compute_dtype=torch.float32)
-    p_cpu = init_params(smoke, SEED, "cpu")
+    smoke = {f"{a}/{dtype}": smoke_card_vs_cpu(dev, a, dtype, tag)
+             for a, dtype in [(arch, "float32")] + [(a, "bfloat16") for a in bf16_smokes]}
+    return {"counts": counts, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "tok_per_s": out["tok_per_s"], "peak_bytes": peak, "param_bytes": param_bytes,
+            "prefill_idle_share": prof_prefill["idle_share"],
+            "decode_idle_share": prof_decode["idle_share"], "smoke": smoke}
+
+
+def smoke_card_vs_cpu(dev, arch: str, dtype: str, tag: str) -> dict:
+    """The smoke model of ``arch`` in ``dtype``, prefill of 40 tokens and 4
+    decode steps, on the card (kernels) and on the CPU (plain versions), from
+    the same weights, the logits held together at SMOKE_TOL[dtype].
+
+    In bf16 every attention call of the card run is held at FLASH_TOL
+    against the plain version on its own inputs, and the card runs once more
+    with attention through the plain version on the card, the baseline
+    of what the card's other bf16 arithmetic does.  Where that baseline is
+    itself beyond SMOKE_TOL of the CPU somewhere (a rounding flip amplified
+    by the model), the kernel's run may not exceed the baseline's largest
+    difference by more than the tolerance's 2e-2; elsewhere it is held
+    elementwise."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models import model as M
+    from repro_torch.models.common import init_params
+
+    smoke = dataclasses.replace(configs.smoke(arch), compute_dtype=getattr(torch, dtype))
+    p_cpu = M.compute_params(smoke, init_params(smoke, SEED, "cpu"))
     p_dev = {**{k: v.to(dev) for k, v in p_cpu.items() if k != "layers"},
              "layers": [{k: v.to(dev) for k, v in layer.items()} for layer in p_cpu["layers"]]}
     rng = np.random.default_rng(SEED)
     toks = torch.from_numpy(rng.integers(0, smoke.vocab, (2, 44)).astype(np.int32))
-    runs = {}
-    for where, p in (("card", p_dev), ("cpu", p_cpu)):
-        t = toks.to(p["embed"].device)
-        logits, cache = M.prefill(smoke, p, {"tokens": t[:, :40]}, max_seq=44)
-        outs = [logits[..., :smoke.vocab].cpu()]
-        for i in range(40, 44):
-            logits, cache = M.decode_step(smoke, p, cache, t[:, i:i + 1])
-            outs.append(logits[..., :smoke.vocab].cpu())
-        runs[where] = torch.cat(outs, dim=1)
-    smoke_err = float((runs["card"] - runs["cpu"]).abs().max())
-    np.testing.assert_allclose(runs["card"].numpy(), runs["cpu"].numpy(), rtol=1e-4, atol=1e-3,
-                               err_msg=f"{tag}: float32 smoke logits, card vs CPU")
-    log(f"{tag}: float32 smoke {smoke.name} prefill(40) + 4 decode steps, card (kernel) vs "
-        f"CPU (plain): logits within rtol 1e-4 / atol 1e-3, max abs diff {smoke_err:.3g}")
-    return {"counts": counts, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
-            "tok_per_s": out["tok_per_s"], "peak_bytes": peak, "param_bytes": param_bytes,
-            "prefill_idle_share": prof_prefill["idle_share"],
-            "decode_idle_share": prof_decode["idle_share"], "smoke_max_abs_diff": smoke_err}
+
+    def logits_of(p, attention=None):
+        wrapper = ops._fa.flash_attention
+        if attention is not None:
+            ops._fa.flash_attention = attention
+        try:
+            t = toks.to(p["embed"].device)
+            logits, cache = M.prefill(smoke, p, {"tokens": t[:, :40]}, max_seq=44)
+            outs = [logits[..., :smoke.vocab].float().cpu()]
+            for i in range(40, 44):
+                logits, cache = M.decode_step(smoke, p, cache, t[:, i:i + 1])
+                outs.append(logits[..., :smoke.vocab].float().cpu())
+        finally:
+            ops._fa.flash_attention = wrapper
+        return torch.cat(outs, dim=1)
+
+    calls = OutputAgreement()  # every attention call of the bf16 card run
+    kernel = ops._fa.flash_attention
+
+    def recorded(q, k, v, **kw):
+        got = kernel(q, k, v, **kw)
+        calls.check(f"{tag}: {smoke.name} attention {tuple(q.shape)}", got,
+                    flash_attention_ref(q, k, v, **kw), FLASH_TOL[dtype])
+        return got
+
+    cpu = logits_of(p_cpu)
+    card = logits_of(p_dev, recorded if dtype == "bfloat16" else None)
+    tol = SMOKE_TOL[dtype]
+    err = float((card - cpu).abs().max())
+    beyond = lambda run: int(((run - cpu).abs() > tol["atol"] + tol["rtol"] * cpu.abs()).sum())  # noqa: E731
+    out = {"max_abs_diff": err, "beyond_tol": beyond(card)}
+    if dtype == "float32":
+        np.testing.assert_allclose(card.numpy(), cpu.numpy(), **tol,
+                                   err_msg=f"{tag}: float32 smoke {smoke.name} logits, card vs CPU")
+        log(f"{tag}: float32 smoke {smoke.name} prefill(40) + 4 decode steps, card (kernel) vs "
+            f"CPU (plain): logits within rtol {tol['rtol']} / atol {tol['atol']}, max abs diff "
+            f"{err:.3g}")
+        return out
+
+    base = logits_of(p_dev, flash_attention_ref)
+    base_err = float((base - cpu).abs().max())
+    out.update(base_max_abs_diff=base_err, base_beyond_tol=beyond(base),
+               attention_max_abs_err=calls.max_abs)
+    if out["base_beyond_tol"] == 0:
+        np.testing.assert_allclose(card.numpy(), cpu.numpy(), **tol,
+                                   err_msg=f"{tag}: bf16 smoke {smoke.name} logits, card vs CPU")
+        held = f"elementwise within rtol {tol['rtol']} / atol {tol['atol']}"
+    elif err > base_err + tol["atol"]:
+        raise AssertionError(f"{tag}: bf16 smoke {smoke.name}: card (kernel) vs CPU max abs "
+                             f"diff {err:.3g} exceeds the card's plain-attention baseline "
+                             f"{base_err:.3g} by more than {tol['atol']}")
+    else:
+        held = (f"within the card's plain-attention baseline + {tol['atol']} (the baseline "
+                f"itself is beyond the elementwise tolerance somewhere)")
+    log(f"{tag}: bf16 smoke {smoke.name} prefill(40) + 4 decode steps, card (kernel) vs CPU "
+        f"(plain): logits {held}: max abs diff {err:.3g}, {out['beyond_tol']} of {cpu.numel()} "
+        f"beyond the elementwise tolerance; card with plain attention vs CPU {base_err:.3g}, "
+        f"{out['base_beyond_tol']} beyond; every in-model attention call within "
+        f"{FLASH_TOL[dtype]} of the plain version (max abs err {calls.max_abs:.3g}); "
+        f"largest logit {float(cpu.abs().max()):.3g}")
+    return out
 
 
 # --------------------------------------------------------------------- main
@@ -891,7 +1066,8 @@ def main() -> int:
         finally:
             dist.destroy_process_group()
     width = phase_width(dev, agree)
-    served = phase_serve(dev, "gemma-2b", "flash_attention")
+    served = phase_serve(dev, "gemma-2b", "flash_attention",
+                         bf16_smokes=("gemma-2b", "gemma2-2b"))
     served_ssm = phase_serve(dev, "falcon-mamba-7b", "mamba_scan")
 
     paths = {"trace": trace["counts"], "width": width["counts"], "serve": served["counts"],
@@ -946,7 +1122,12 @@ def main() -> int:
                            "dtype"), FLASH_FULL)),
         "host_ms": flash["host_ms"],
         "device_ms": flash["device_ms"],
+        "instances": {dtype: {key: inst[key] for key in (
+            "ms", "turns_ms", "device_ms", "host_ms", "host_check_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms", "sass", "ptxas")}
+            for dtype, inst in flash["instances"].items()},
         "serve": serve_numbers(served),
+        "smoke": served["smoke"],
     }, {
         "name": "mamba_scan",
         "route": "cuda",

@@ -52,7 +52,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     up-to-date library, one nvcc process per source, all started together.
 
     Returns each compiled source's compiler output (``-Xptxas -v`` lists
-    registers, shared memory and spills per kernel).  Raises if any fails.
+    registers, shared memory and spills per kernel), which is also kept
+    beside its library (:func:`build_log`).  Raises if any fails.
     """
     names = sources() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -60,7 +61,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     try:
         for name in names:
             out = target(name)
-            if out.exists():
+            if out.exists() and out.with_suffix(".log").exists():
                 continue
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -74,6 +75,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
             if proc.returncode:
                 failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{logs[name]}")
             else:
+                out.with_suffix(".log").write_text(logs[name])
                 os.replace(tmp, out)
     finally:
         for proc, _, _ in jobs.values():
@@ -83,6 +85,13 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     if failed:
         raise RuntimeError("CUDA build failed: " + "\n".join(failed))
     return logs
+
+
+def build_log(name: str) -> str:
+    """The compiler output of the current library of ``csrc/<name>.cu``,
+    building it if needed."""
+    build_all([name])
+    return target(name).with_suffix(".log").read_text()
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,6 +5,8 @@ The Pallas kernel runs in interpret mode, as tests/test_kernels.py runs it.
 On the CPU the port's wrapper takes its plain PyTorch version; the CUDA
 kernel itself is held against that version on the card by chip_smoke.py.
 Tolerances follow tests/test_kernels.py:88: 2e-5 in float32, 2e-2 in bf16.
+The CUDA instances' launch plans, TMA rules and the bf16 instance's
+rounding of P (modelled here on the CPU) are checked without the card.
 """
 import functools
 
@@ -17,6 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as K  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
@@ -196,3 +199,154 @@ def test_flash_source_builds_beside_moments_without_rehashing_it(tmp_path, monke
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", moments.parent)
     assert _build.target("moments") == moments
+
+
+# ------------------------------------------------ the bf16 tensor-core instance
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", tfa.HEAD_DIMS)
+def test_flash_launch_plan_fits_the_card(dtype, hd):
+    """The launch csrc/flash_attention.cu makes, as kernels/flash_attention.py:plan
+    mirrors it: one block's shared memory within sm_90's limit; for bf16 three
+    warpgroups (a TMA producer, two wgmma consumers of 64 rows each), a ring
+    of at least 2 K/V stages, one CTA per SM (setmaxnreg hands the producer's
+    registers to the consumers), and TMA boxes and strides TMA takes."""
+    plan = tfa.plan(TDT[dtype], hd)
+    assert plan["smem"] <= tfa.SMEM_LIMIT
+    assert tfa.smem_bytes(hd, TDT[dtype]) == plan["smem"]
+    if dtype == "float32":
+        assert (plan["threads"], plan["block_q"], plan["block_k"]) == (256, 64, 64)
+        if hd == 256:
+            assert plan["smem"] == 217_088  # one CTA per SM at gemma's head dim
+        return
+    assert plan["threads"] == 3 * 128 and plan["block_q"] == 2 * 64
+    assert plan["block_k"] % 16 == 0 and 8 <= plan["block_k"] <= 256  # wgmma k16, n <= 256
+    assert plan["stages"] >= 2
+    assert 2 * (plan["smem"] + 1024) > tfa.SM_SMEM  # a second CTA never fits
+    for box, rows in ((plan["q_box"], plan["block_q"]), (plan["kv_box"], plan["block_k"])):
+        assert box == (tfa.TMA_BOX_BYTES // 2, 1, rows, 1) and max(box) <= 256
+        assert hd % box[0] == 0  # a row tile is hd / 64 boxes of 128 B
+    for B, S, heads in ((1, 1, 1), (4, 1024, 8), (3, 77, 5)):  # contiguous (B, S, heads, hd)
+        t = torch.empty((B, S, heads, hd), dtype=torch.bfloat16, device="meta")
+        tfa.check_tma(t)
+        assert all(2 * s % 16 == 0 for s in t.stride()[:-1])
+
+
+@pytest.mark.parametrize("arch", tconfigs.ARCHS)
+def test_flash_plan_takes_every_attention_config(arch):
+    """Each config with attention has its (H, KV, padded head dim) taken by both
+    instances, and its longest prefill cell fits the grid's query tiles."""
+    cfg = tconfigs.get_config(arch)
+    if cfg.attention_free:
+        assert cfg.n_heads == 0
+        return
+    hd = tops.padded_head_dim(max(cfg.qk_dim, cfg.v_head_dim or 0))
+    assert cfg.n_heads % cfg.n_kv_heads == 0
+    longest = max(c.seq_len for c in tconfigs.SHAPES.values() if c.mode == "prefill")
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = tfa.plan(dtype, hd)
+        assert plan["smem"] <= tfa.SMEM_LIMIT
+        assert -(-longest // plan["block_q"]) <= tfa.MAX_Q_TILES
+    for heads in (cfg.n_heads, cfg.n_kv_heads):
+        tfa.check_tma(torch.empty((1, 8, heads, hd), dtype=torch.bfloat16, device="meta"))
+
+
+def _tensor_core_model(q, k, v, causal, window, cap, kv_len, scale=None, block_k=64):
+    """The bf16 instance's arithmetic on the CPU, kv tile by kv tile: float32
+    scores, scale then softcap, a running max; p rounded to bf16 before the
+    P.V product, l summed from the float32 p; out = acc / max(l, 1e-30)."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    kv_len = Sk if kv_len is None else kv_len
+    heads = torch.arange(H) // (H // KV)
+    qf = q.float().permute(0, 2, 1, 3)  # (B, H, Sq, hd)
+    kf, vf = (t.float()[:, :, heads].permute(0, 2, 1, 3) for t in (k, v))
+    s_all = qf @ kf.transpose(-1, -2) * (scale if scale is not None else 1.0 / np.sqrt(hd))
+    if cap > 0:
+        s_all = torch.tanh(s_all / cap) * cap
+    qpos, kpos = torch.arange(Sq)[:, None], torch.arange(Sk)[None, :]
+    ok = kpos < kv_len
+    if causal:
+        ok = ok & (kpos <= qpos)
+    if window > 0:
+        ok = ok & (qpos - kpos < window)
+    s_all = torch.where(ok, s_all, float("-inf"))
+    m = torch.full((B, H, Sq), float("-inf"))
+    l = torch.zeros((B, H, Sq))
+    acc = torch.zeros((B, H, Sq, hd))
+    for k0 in range(0, Sk, block_k):
+        s = s_all[..., k0:k0 + block_k]
+        m_new = torch.maximum(m, s.amax(-1))
+        base = torch.where(m_new == float("-inf"), 0.0, m_new)
+        r = torch.exp(m - base)
+        p = torch.exp(s - base[..., None])
+        l = l * r + p.sum(-1)
+        p16 = p.to(torch.bfloat16).float()
+        acc = acc * r[..., None] + p16 @ vf[:, :, k0:k0 + block_k]
+        m = m_new
+    out = acc / l.clamp(min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _model_cases():
+    cases = [c[:9] + (None,) for c in CASES if c[9] == "bfloat16"]
+    cases += [(2, 70, 70, 4, 2, 64, True, 0, 0.0, None), (2, 33, 97, 4, 2, 128, False, 0, 0.0, None),
+              (2, 100, 100, 4, 2, 256, True, 40, 30.0, None), (1, 64, 128, 2, 2, 64, False, 0, 0.0, 77),
+              (1, 64, 128, 2, 2, 64, False, 0, 0.0, 0), (1, 130, 130, 4, 1, 64, True, 7, 0.0, None)]
+    rng = np.random.default_rng(23)
+    for _ in range(12):  # seeded sweep: GQA groups, head dims, ragged lengths, masks
+        KV, G = int(rng.choice([1, 2, 4])), int(rng.choice([1, 2, 8]))
+        Sk = int(rng.integers(1, 300))
+        cases.append((int(rng.integers(1, 3)), int(rng.integers(1, 300)), Sk, KV * G, KV,
+                      int(rng.choice(tfa.HEAD_DIMS)), bool(rng.integers(0, 2)),
+                      int(rng.choice([0, 1, 64, 150])), float(rng.choice([0.0, 5.0, 50.0])),
+                      None if rng.random() < 0.6 else int(rng.integers(0, Sk + 5))))
+    return cases
+
+
+@pytest.mark.parametrize("case", _model_cases())
+def test_flash_bf16_rounding_of_p_fits_the_tolerance(case):
+    """P in bf16 before P.V (the tensor-core instance) against the plain
+    version, which multiplies float32 p: within the unchanged 2e-2."""
+    B, Sq, Sk, H, KV, hd, causal, window, cap, kv_len = case
+    q, k, v = _torch(_inputs(B, Sq, Sk, H, KV, hd, "bfloat16", Sq + Sk + hd), "bfloat16")
+    got = _tensor_core_model(q, k, v, causal, window, cap, kv_len)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap, kv_len=kv_len)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    _close(got, want.float().numpy(), 2e-2)
+
+
+def test_flash_wrapper_raises_where_tma_cannot_load():
+    """A bf16 input TMA cannot take is refused on every device.  A start off
+    a 16-byte boundary reaches the wrapper; strides that TMA refuses cannot
+    (the wrapper also needs contiguous inputs of a built head dim), so
+    check_tma, which the wrapper calls, is held to them directly."""
+    kv = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    shifted = torch.zeros(1 * 8 * 4 * 64 + 1, dtype=torch.bfloat16)[1:].view(1, 8, 4, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tfa.flash_attention(shifted, kv, kv)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):  # rows of 65 columns
+        tfa.check_tma(torch.zeros((1, 8, 4, 65), dtype=torch.bfloat16)[..., :64])
+    with pytest.raises(ValueError, match="head dim contiguous"):
+        tfa.check_tma(torch.zeros((1, 8, 64, 4), dtype=torch.bfloat16).transpose(2, 3))
+    f32 = torch.zeros(1 * 8 * 4 * 64 + 1)[1:].view(1, 8, 4, 64)  # no TMA in float32
+    assert tfa.flash_attention(f32, kv.float(), kv.float()).shape == f32.shape
+
+
+def test_build_keeps_each_compiler_output_beside_its_library(tmp_path, monkeypatch):
+    """A cached build still reports its ptxas lines (chip_smoke.py reads them)."""
+    from repro_torch.kernels import _build
+
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    'echo built > "$2"\necho "ptxas info    : Used 42 registers"\n')
+    fake.chmod(0o755)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// a source\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
+    assert "Used 42 registers" in _build.build_all(["k"])["k"]
+    assert _build.build_all(["k"]) == {}  # up to date: nothing compiled
+    assert "Used 42 registers" in _build.build_log("k")
