@@ -10,7 +10,12 @@ non-zero):
            from src/repro_torch/kernels/csrc/ (timed);
   kernel   the moments kernel against its plain PyTorch version on the card,
            at the repo's test shapes and at full width, with a fid_offset
-           sweep, a determinism check and timings;
+           sweep, determinism on one stream and across two (two workspaces),
+           its ptxas line and SASS counts (the cluster barrier and
+           distributed shared memory required), and timings at the width
+           and trace shapes: CUDA events, 200 launches in one CUDA graph,
+           host enqueue and its input checks, device time, and the launch
+           floor (an empty kernel of the same geometry);
   trace    main path A: NWChem-shaped traces of 100 ranks x 30 steps through
            the port's sim -> callstack -> make_distributed_ad_step(use_kernel)
            over a one-process NCCL group, held against the float64 host
@@ -74,11 +79,20 @@ ALPHA = 6.0
 # min/max rtol 1e-6 on rows some event reached, labels exact.
 SUMS_RTOL, SUMS_ATOL, EXT_RTOL = 1e-5, 1e-2, 1e-6
 KERNEL_CASES = [(64, 16, 32), (500, 128, 128), (1000, 7, 512)]  # test_kernels.py:16
+KERNEL_EDGES = [  # (N, F, block_events) the grid and the row split must get right
+    (0, 16, 512), (1, 1, 512), (300, 7, 37), (1000, 3, 100), (5000, 129, 1024),
+    (100_000, 2048, 32), (70_000, 10_000, 512)]
 WIDTH_N, WIDTH_F, WIDTH_EB = 262_144, 2048, 512
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same sheet
 H100_BF16_OPS_PER_S = 989e12  # bf16 dense tensor cores, same sheet
 MOMENTS_OPS_PER_EVENT = 20  # float32 operations the kernel does per event
+MOMENTS_SASS = ("UCGABAR_ARV", "UCGABAR_WAIT", "LD", "LDS", "STS", "LDG", "STG", "ATOM",
+                "VOTE", "SHFL", "BAR", "MEMBAR")
+MOMENTS_SASS_NEEDS = {"cluster barrier": ("UCGABAR_ARV", "UCGABAR_WAIT"),
+                      # ld.shared::cluster of the peers' tables: the kernel's only LD
+                      # (its own shared memory is LDS, global memory LDG)
+                      "distributed shared memory": ("LD",)}
 FLASH_CASES = [  # tests/test_kernels.py:66-76: (B, Sq, Sk, H, KV, hd, causal, window, cap, dtype)
     (2, 128, 128, 4, 4, 64, True, 0, 0.0, "float32"),
     (1, 256, 256, 4, 2, 64, True, 0, 0.0, "float32"),
@@ -204,7 +218,7 @@ def host_ms(fn, iters: int) -> float:
 
 
 # The name torch.profiler gives each kernel of the port, by wrapper count.
-PROFILER_NAMES = {"moments_and_labels": ("moments_pass1", "moments_pass2"),
+PROFILER_NAMES = {"moments_and_labels": ("moments_cluster",),
                   "flash_attention": ("flash_fwd",), "mamba_scan": ("mamba_scan_fwd",)}
 
 
@@ -333,6 +347,13 @@ def phase_kernel(dev, agree: Agreement) -> dict:
         d_p, l_p = moments_and_labels_ref(f, d, prev)
         agree.check(f"kernel N={N} F={F} EB={EB}", d_k, l_k, d_p, l_p)
         log(f"kernel: N={N} F={F} EB={EB} ok, labelled {int(l_k.sum())}")
+    for N, F, EB in KERNEL_EDGES:
+        f, d, prev = (t.to(dev) for t in _kernel_inputs(rng, N, F, 4 * F, min(N, 3)))
+        d_k, l_k = mo.moments_and_labels(f, d, prev, block_events=EB)
+        agree.check(f"kernel edge N={N} F={F} EB={EB}", d_k, l_k,
+                    *moments_and_labels_ref(f, d, prev))
+    log(f"kernel: {len(KERNEL_EDGES)} edge shapes ok (empty stream, one event, F below the "
+        f"cluster size, ragged chunks, chunks past the grid, F near the shared-memory limit)")
 
     N, F, EB = WIDTH_N, WIDTH_F, WIDTH_EB
     f, d, prev = (t.to(dev) for t in _kernel_inputs(rng, N, F, 64 * F, 8))
@@ -351,45 +372,155 @@ def phase_kernel(dev, agree: Agreement) -> dict:
     gf = torch.from_numpy(rng.integers(0, F, N).astype(np.int32)).to(dev)
     for off in (0, 512, 1536):
         block = prev[off:off + Fs].contiguous()
-        d_k, l_k = mo.moments_and_labels(gf, d, block, fid_offset=off)
+        d_o, l_o = mo.moments_and_labels(gf, d, block, fid_offset=off)
         d_p, l_p = moments_and_labels_ref(gf, d, block, fid_offset=off)
-        agree.check(f"kernel fid_offset={off}", d_k, l_k, d_p, l_p)
+        agree.check(f"kernel fid_offset={off}", d_o, l_o, d_p, l_p)
     log(f"kernel: fid_offset sweep Fs={Fs} at 0, 512, 1536 ok")
 
-    launch = lambda: mo.moments_and_labels(f, d, prev, block_events=EB)  # noqa: E731
-    kernel_ms = cuda_ms(launch, iters=200)
-    plain_ms = cuda_ms(lambda: moments_and_labels_ref(f, d, prev), iters=20)
-    nbytes = N * (4 + 4 + 1) + 2 * F * 5 * 4
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = N * MOMENTS_OPS_PER_EVENT / H100_F32_OPS_PER_S * 1e3
-    timing = {
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes,
-    }
-    log(f"kernel: full width kernel {kernel_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
-        f"bound {timing['bound_ms'] * 1e3:.3f} us ({nbytes} B over 3.35 TB/s); "
-        f"library: no single PyTorch call computes this function")
-    timing["host_ms"] = host_ms(launch, iters=200)
-    timing["device_ms"] = device_ms_by_kernel(launch, iters=20)
-    log(f"kernel: full width host enqueue {timing['host_ms'] * 1e3:.2f} us/call; device time "
-        f"by kernel (torch.profiler, us/launch): "
-        + (", ".join(f"{k} {v * 1e3:.2f}" for k, v in timing["device_ms"].items())
-           or "not measured (no device time recorded)"))
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    on_streams = []
+    for s in (s1, s2):  # both in flight at once, each with its own workspace
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            on_streams.append(mo.moments_and_labels(f, d, prev, block_events=EB))
+    torch.cuda.synchronize()
+    for d_s, l_s in on_streams:
+        if not (torch.equal(d_k.view(torch.int32), d_s.view(torch.int32))
+                and torch.equal(l_k, l_s)):
+            raise AssertionError("launches on two streams gave different results")
+    if len({k for k in mo._workspaces if k[1] in (s1.cuda_stream, s2.cuda_stream)}) != 2:
+        raise AssertionError("two streams did not get two workspaces")
+    log("kernel: full width on two streams at once (two workspaces) bitwise equal to the "
+        "default stream's")
+
+    facts = moments_build_facts()
+    log(f"kernel: ptxas {facts['ptxas']}; SASS "
+        + ", ".join(f"{op} {n}" for op, n in facts["sass"].items()))
+    timing = moments_timing(f, d, prev, EB, (d_k, l_k))
+    timing.update(facts)
 
     # The trace path's shape: 100 ranks x 512 calls, F = 7 (main path A).
     rng_t = np.random.default_rng(SEED + 1)
     ft = torch.from_numpy(rng_t.integers(0, 7, 51_200).astype(np.int32)).to(dev)
     dt = torch.from_numpy(rng_t.lognormal(6, 0.5, 51_200).astype(np.float32)).to(dev)
     zt = torch.zeros((7, 5), device=dev)
-    timing["trace_shape"] = {
-        "N": 51_200, "F": 7,
-        "ms": cuda_ms(lambda: mo.moments_and_labels(ft, dt, zt), iters=200),
-        "plain_ms": cuda_ms(lambda: moments_and_labels_ref(ft, dt, zt), iters=20),
-        "bound_ms": (51_200 * 9 + 2 * 7 * 20) / H100_BYTES_PER_S * 1e3,
-        "device_ms": device_ms_by_kernel(lambda: mo.moments_and_labels(ft, dt, zt), iters=20),
-    }
-    log("kernel: trace shape N=51200 F=7: " + json.dumps(timing["trace_shape"]))
+    d_t, l_t = mo.moments_and_labels(ft, dt, zt)
+    agree.check("kernel trace shape N=51200 F=7", d_t, l_t, *moments_and_labels_ref(ft, dt, zt))
+    timing["trace_shape"] = moments_timing(ft, dt, zt, WIDTH_EB, (d_t, l_t))
     return timing
+
+
+def moments_bound(N: int, F: int) -> dict:
+    """The least time for one call: events read once (8 B), labels written
+    once (1 B), the (F,5) table read and the delta written once, over the
+    memory rate, against MOMENTS_OPS_PER_EVENT float32 operations per event."""
+    nbytes = N * (4 + 4 + 1) + 2 * F * 5 * 4
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = N * MOMENTS_OPS_PER_EVENT / H100_F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes}
+
+
+def graph_ms(fn, calls: int):
+    """CUDA-event ms per call over ``calls`` calls of ``fn`` captured in one
+    CUDA graph and replayed, so the host's enqueue is not in the time; and
+    the output of the last call, as the replay left it."""
+    import torch
+
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(3):  # the stream's workspace is made before the capture
+            fn()
+    s.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        for _ in range(calls):
+            out = fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls, out
+
+
+def moments_floor(ctas: int):
+    """Launchers of the empty kernel of the moments kernel's geometry
+    (``ctas`` CTAs in clusters of 8, 256 threads): a bare ctypes call on the
+    stream current now, and one that reads the current stream at each call
+    (for a graph capture)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build
+
+    fn = _build.library("moments").moments_launch_floor_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def bare():
+        if fn(ctas, stream):
+            raise RuntimeError("moments_launch_floor failed to launch")
+
+    def current():
+        if fn(ctas, torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("moments_launch_floor failed to launch")
+
+    return bare, current
+
+
+def moments_timing(f, d, prev, eb: int, want) -> dict:
+    """The moments kernel at one shape: CUDA-event ms per call over 200
+    calls, the same over 200 calls in one CUDA graph (whose last output must
+    equal ``want`` bitwise), the plain version's ms, host enqueue and the
+    share of it in the input checks, device ms per launch (torch.profiler),
+    the launch floor of its geometry (device, bare host launch, in a graph),
+    and the bound."""
+    import torch
+
+    from repro_torch.kernels import moments as mo
+    from repro_torch.kernels.ref import moments_and_labels_ref
+
+    N, F = f.shape[0], prev.shape[0]
+    ctas = mo.grid(N, eb)[2]
+    launch = lambda: mo.moments_and_labels(f, d, prev, block_events=eb)  # noqa: E731
+    in_graph, (d_g, l_g) = graph_ms(launch, calls=200)
+    if not (torch.equal(d_g.view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(l_g, want[1])):
+        raise AssertionError(f"moments N={N} F={F}: the kernel in a CUDA graph gave other "
+                             f"results than launched alone")
+    bare, current = moments_floor(ctas)
+    t = {
+        "N": N, "F": F, "block_events": eb, "ctas": ctas,
+        "ms": cuda_ms(launch, iters=200),
+        "graph_ms": in_graph,
+        "plain_ms": cuda_ms(lambda: moments_and_labels_ref(f, d, prev), iters=20),
+        "host_ms": host_ms(launch, iters=200),
+        "host_check_ms": host_ms(lambda: mo._check(f, d, prev, eb), iters=200),  # part of host_ms
+        "device_ms": device_ms_by_kernel(launch, iters=20),
+        "floor": {"device_ms": device_ms_by_kernel(bare, iters=20),
+                  "host_ms": host_ms(bare, iters=200),
+                  "graph_ms": graph_ms(current, calls=200)[0]},
+        **moments_bound(N, F),
+    }
+    us = lambda ms: f"{ms * 1e3:.2f}"  # noqa: E731
+    by_kernel = lambda dev_ms: (", ".join(f"{k} {us(v)}" for k, v in dev_ms.items())  # noqa: E731
+                                or "not measured (no device time recorded)")
+    log(f"kernel: N={N} F={F} ({ctas} CTAs): {us(t['ms'])} us/call by CUDA events, "
+        f"{us(t['graph_ms'])} us/call in a CUDA graph of 200 (output bitwise equal), plain "
+        f"{us(t['plain_ms'])} us, bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}: "
+        f"{t['bytes']} B); host enqueue {us(t['host_ms'])} us/call, of which input checks "
+        f"{us(t['host_check_ms'])} us; device (torch.profiler, us/launch): "
+        f"{by_kernel(t['device_ms'])}; launch floor: device {by_kernel(t['floor']['device_ms'])}, "
+        f"bare ctypes launch {us(t['floor']['host_ms'])} us host, "
+        f"{us(t['floor']['graph_ms'])} us/launch in a CUDA graph; library: no single PyTorch "
+        f"call computes this function")
+    return t
 
 
 # ----------------------------------------------------- main path A: traces
@@ -677,6 +808,53 @@ _FLASH_DTYPE = {"wgmma_bf16": "bfloat16", "simt_f32": "float32"}
 _SASS_OP = re.compile(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", re.M)
 
 
+def sass_by_function(name: str) -> dict:
+    """{function name: SASS opcode counts} of the built library of
+    ``csrc/<name>.cu`` (``cuobjdump -sass``, beside nvcc)."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = run_text([str(cuobjdump), "-sass", str(_build.target(name))])
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        function, _, body = chunk.partition("\n")
+        out[function.strip()] = Counter(_SASS_OP.findall(body))
+    return out
+
+
+def ptxas_lines(name: str, function: str) -> str:
+    """The ``-Xptxas -v`` lines (registers, spills) of the kernel whose
+    mangled name holds ``function``, in the build log of ``csrc/<name>.cu``."""
+    from repro_torch.kernels import _build
+
+    lines, current = [], False
+    for line in _build.build_log(name).splitlines():
+        if "Compiling entry function" in line:
+            current = function in line
+        elif current and ("registers" in line or "spill" in line):
+            lines.append(line.replace("ptxas info    :", "").strip())
+    return "; ".join(lines)
+
+
+def moments_build_facts() -> dict:
+    """The moments kernel's ptxas line and SASS counts.  Raises if it spills
+    or lacks the cluster barrier or distributed-shared-memory accesses."""
+    ptxas = ptxas_lines("moments", "moments_cluster")
+    spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ptxas)
+    if spills is None or int(spills[1]) or int(spills[2]):
+        raise AssertionError(f"moments: the kernel spills or has no ptxas line: {ptxas}")
+    ops = next((c for f, c in sass_by_function("moments").items() if "moments_cluster" in f),
+               None)
+    if ops is None:
+        raise AssertionError("moments: no moments_cluster in the library's SASS")
+    sass = {**{op: ops[op] for op in MOMENTS_SASS}, "total": sum(ops.values())}
+    missing = [what for what, names in MOMENTS_SASS_NEEDS.items()
+               if not any(ops[op] for op in names)]
+    if missing:
+        raise AssertionError(f"moments: SASS lacks {missing}: {dict(ops)}")
+    return {"ptxas": ptxas, "sass": sass}
+
+
 def flash_build_facts() -> dict:
     """{dtype: {hd: {"ptxas": its -Xptxas -v line, "sass": instruction counts}}}
     of every instance in the built flash library.  Raises if an instance is
@@ -692,12 +870,9 @@ def flash_build_facts() -> dict:
                 int(m.group(2)), {"ptxas": [], "sass": {}})
         elif current is not None and ("registers" in line or "spill" in line):
             current["ptxas"].append(line.replace("ptxas info    :", "").strip())
-    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
-    sass = run_text([str(cuobjdump), "-sass", str(_build.target("flash_attention"))])
-    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
-        m = _FLASH_INSTANCE.search(chunk.split("\n", 1)[0])
+    for function, ops in sass_by_function("flash_attention").items():
+        m = _FLASH_INSTANCE.search(function)
         if m:
-            ops = Counter(_SASS_OP.findall(chunk))
             facts[_FLASH_DTYPE[m.group(1)]][int(m.group(2))]["sass"] = {
                 **{op: ops[op] for op in FLASH_SASS}, "total": sum(ops.values())}
     for dtype in ("bfloat16", "float32"):
@@ -1103,6 +1278,13 @@ def main() -> int:
         "shape": {"N": WIDTH_N, "F": WIDTH_F, "block_events": WIDTH_EB},
         "host_ms": timing["host_ms"],
         "device_ms": timing["device_ms"],
+        "graph_ms": timing["graph_ms"],
+        "host_check_ms": timing["host_check_ms"],
+        "floor": timing["floor"],
+        "ctas": timing["ctas"],
+        "ptxas": timing["ptxas"],
+        "sass": timing["sass"],
+        "two_streams_bitwise_equal": True,  # phase_kernel raised otherwise
         "trace_shape": timing["trace_shape"],
     }, {
         "name": "flash_attention",

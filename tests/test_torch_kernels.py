@@ -154,12 +154,85 @@ def test_moments_wrapper_rejects_what_the_kernel_does_not_take():
         tmo.moments_and_labels(f, d, table.to("meta"))
 
 
-def test_moments_launch_grid_is_fixed_by_the_stream():
-    """The sum order depends only on N and block_events (never the card)."""
-    assert tmo.grid(0, 512) == (1, 1, 1)
-    assert tmo.grid(1000, 512) == (512, 2, 2)
-    assert tmo.grid(262_144, 512) == (512, 512, tmo.MAX_PARTIALS)
+@pytest.mark.parametrize("N,want", [
+    (0, (1, 1, 8, 1)), (1, (1, 1, 8, 1)), (1000, (512, 2, 8, 1)),
+    (51_200, (512, 100, 104, 13)), (262_144, (512, 512, 128, 16))])
+def test_moments_launch_grid_is_fixed_by_the_stream(N, want, monkeypatch):
+    """The sum order depends only on N and block_events (never the card):
+    a fixed grid of whole 8-CTA clusters, at most 128 CTAs, one partial per
+    cluster, whatever the SM count."""
+    grids = []
+    for sms in (132, 114, 16):
+        monkeypatch.setattr(torch.cuda, "get_device_properties",
+                            lambda *a, sms=sms: type("P", (), {"multi_processor_count": sms}))
+        grids.append(tmo.grid(N, 512))
+    assert grids == [want] * 3
+    eb, chunks, ctas, clusters = want
+    assert ctas % tmo.CLUSTER == 0 and tmo.CLUSTER <= ctas <= tmo.MAX_CTAS
+    assert clusters == ctas // tmo.CLUSTER
+    assert chunks * eb >= N and ctas >= min(chunks, tmo.MAX_CTAS)
     assert tmo.smem_bytes(2048, 512) <= tmo.SMEM_LIMIT
+
+
+_F16, _D16, _T4 = (torch.zeros(16, dtype=torch.int32), torch.ones(16), torch.zeros((4, 5)))
+# Each input the wrapper refuses, with the exception type and message it has
+# always raised (the checks were trimmed for host time, not changed).
+_BAD_INPUTS = {
+    "fids int64": ((_F16.long(), _D16, _T4), {}, TypeError,
+                   "fids must be a 1-D int32 tensor, got torch.int64 (16,)"),
+    "fids 2-D": ((_F16.view(4, 4), _D16.view(4, 4), _T4), {}, TypeError,
+                 "fids must be a 1-D int32 tensor, got torch.int32 (4, 4)"),
+    "durs float64": ((_F16, _D16.double(), _T4), {}, TypeError,
+                     "durs must be float32 of shape (16,), got torch.float64 (16,)"),
+    "durs shape": ((_F16, torch.ones(15), _T4), {}, TypeError,
+                   "durs must be float32 of shape (16,), got torch.float32 (15,)"),
+    "table 4 columns": ((_F16, _D16, torch.zeros((4, 4))), {}, TypeError,
+                        "table_sums must be (F, 5) float32, got torch.float32 (4, 4)"),
+    "table 1-D": ((_F16, _D16, torch.zeros(5)), {}, TypeError,
+                  "table_sums must be (F, 5) float32, got torch.float32 (5,)"),
+    "table float64": ((_F16, _D16, _T4.double()), {}, TypeError,
+                      "table_sums must be (F, 5) float32, got torch.float64 (4, 5)"),
+    "table on meta": ((_F16, _D16, _T4.to("meta")), {}, ValueError,
+                      "fids, durs and table_sums must lie on one device"),
+    "fids strided": ((torch.zeros(32, dtype=torch.int32)[::2], _D16, _T4), {}, ValueError,
+                     "fids, durs and table_sums must be contiguous"),
+    "table strided": ((_F16, _D16, torch.zeros((4, 10))[:, ::2]), {}, ValueError,
+                      "fids, durs and table_sums must be contiguous"),
+    "no rows": ((_F16, _D16, torch.zeros((0, 5))), {}, ValueError,
+                "table_sums needs at least one row"),
+    "block_events 0": ((_F16, _D16, _T4), {"block_events": 0}, ValueError,
+                       "block_events must be positive"),
+    "F 20000": ((_F16, _D16, torch.zeros((20000, 5))), {}, ValueError,
+                "F=20000 with block_events=512 exceeds a block's 232448 bytes of shared memory"),
+    "all on meta": ((_F16.to("meta"), _D16.to("meta"), _T4.to("meta")), {}, ValueError,
+                    "moments_and_labels runs on cuda or cpu, not meta"),
+}
+
+
+@pytest.mark.parametrize("case", list(_BAD_INPUTS))
+def test_moments_wrapper_check_raises_the_same_type_and_message(case):
+    args, kw, exc, msg = _BAD_INPUTS[case]
+    before = tmo.launches
+    with pytest.raises(exc) as err:
+        tmo.moments_and_labels(*args, **kw)
+    assert str(err.value) == msg
+    assert tmo.launches == before
+
+
+def test_moments_workspace_is_kept_per_device_and_stream(monkeypatch):
+    """One set of tickets (one per cluster rank) and one partials buffer per
+    (device, stream), made once and grown (the tickets kept) when a call
+    needs more partials."""
+    monkeypatch.setattr(tmo, "_workspaces", {})
+    cpu = torch.device("cpu")
+    t1, p1 = tmo._workspace(0, 11, cpu, 5 * 7)
+    assert t1.dtype == torch.int32 and t1.tolist() == [0] * tmo.CLUSTER and p1.numel() == 35
+    assert tmo._workspace(0, 11, cpu, 20) == (t1, p1)  # no new allocation
+    t2, p2 = tmo._workspace(0, 22, cpu, 35)  # another stream: its own
+    assert t2.data_ptr() != t1.data_ptr() and p2.data_ptr() != p1.data_ptr()
+    t3, p3 = tmo._workspace(0, 11, cpu, 16 * 5 * 2048)
+    assert t3 is t1 and p3.numel() == 16 * 5 * 2048
+    assert sorted(tmo._workspaces) == [(0, 11), (0, 22)]
 
 
 def test_moments_wrapper_gives_no_plain_fallback_off_the_cpu():
@@ -189,3 +262,63 @@ def test_kernel_build_needs_nvcc_and_is_keyed_by_its_source(tmp_path, monkeypatc
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports no CUDA code at import time)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_MOMENTS_FN = "_ZN43_GLOBAL__N__137d2b45_10_moments_cu_7ffa2dda15moments_clusterENS_4ArgsE"
+_FLOOR_FN = "_ZN43_GLOBAL__N__137d2b45_10_moments_cu_7ffa2dda20moments_launch_floorEv"
+
+
+def _ptxas(spill_stores):
+    return "\n".join([
+        f"ptxas info    : Compiling entry function '{_FLOOR_FN}' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 4 registers, used 0 barriers",
+        f"ptxas info    : Compiling entry function '{_MOMENTS_FN}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {_MOMENTS_FN}",
+        f"    0 bytes stack frame, {spill_stores} bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 122 registers, used 1 barriers"])
+
+
+def _sass(ops):
+    lines = [f"        /*{16 * i:04x}*/                   {op} R1, R2 ;   /* 0x0 */"
+             for i, op in enumerate(ops)]
+    return "\n".join([f"\t\tFunction : {_FLOOR_FN}", "        /*0000*/   EXIT ;",
+                      f"\t\tFunction : {_MOMENTS_FN}", *lines])
+
+
+@pytest.mark.parametrize("spills,ops,fault", [
+    (0, ["UCGABAR_ARV", "LD.E", "UCGABAR_WAIT", "LDS", "ATOM.E.ADD"], None),
+    (8, ["UCGABAR_ARV", "LD.E", "UCGABAR_WAIT"], "spills"),
+    (0, ["LD.E", "LDS", "LDG.E"], "cluster barrier"),
+    (0, ["UCGABAR_ARV", "UCGABAR_WAIT", "LDS"], "distributed shared memory"),
+])
+def test_chip_smoke_reads_the_moments_kernels_ptxas_and_sass(monkeypatch, spills, ops, fault):
+    """chip_smoke.py takes the moments kernel's ptxas line and SASS counts
+    from the build, and fails where the kernel spills or lacks the cluster
+    barrier or distributed-shared-memory loads."""
+    from repro_torch.kernels import _build
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(_build, "build_log", lambda name: _ptxas(spills))
+    monkeypatch.setattr(_build, "nvcc", lambda: "/toolkit/bin/nvcc")
+    monkeypatch.setattr(cs, "run_text", lambda cmd: _sass(ops))
+    if fault is None:
+        facts = cs.moments_build_facts()
+        assert "Used 122 registers" in facts["ptxas"]
+        assert facts["sass"]["UCGABAR_ARV"] == facts["sass"]["UCGABAR_WAIT"] == 1
+        assert facts["sass"]["LD"] == facts["sass"]["ATOM"] == 1 and facts["sass"]["total"] == 5
+    else:
+        with pytest.raises(AssertionError, match=fault):
+            cs.moments_build_facts()
