@@ -49,6 +49,17 @@ non-zero):
   serve_ssm  main path D: the same traffic and checks on falcon-mamba-7b at
            its published width (64 Mamba layers, no attention), whose every
            prefill layer runs the scan kernel;
+  refusals the card-only limits (moments' F, flash's TMA alignment) raise
+           for CUDA tensors without a launch; the CPU takes the same inputs;
+  train    main path E: repro_torch.launch.train.train on gemma-2b at its
+           published width (global batch 4 x 1024 tokens, remat "block",
+           ce_chunk 512, 6 steps, monitored, trace export on): losses, grad
+           norms, step times (host and CUDA events), tokens/s, peak memory,
+           monitor outputs, and no port kernel launched (training runs the
+           plain versions, as JAX does); one traced step (idle share, top
+           kernels); one float32 step of the same width cut to 2 layers on the
+           card against the CPU; and the exact-resume check on the smoke
+           model (tests/test_training.py:63) on the card;
 
 then the script's wall time, the card's name and power limit, one JSON line
 describing every ported kernel, and last
@@ -60,6 +71,8 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
+import os
 import re
 import subprocess
 import sys
@@ -125,6 +138,18 @@ SCAN_FULL = (4, 1024, 8192, 16)  # falcon-mamba-7b prefill wave: B, S, d_inner, 
 SCAN_TOL = 1e-5  # tests/test_kernels.py:133-134
 SCAN_OPS_PER_STATE = 4  # h = a*h + b (2), h*C and its share of the sum over st (2)
 SERVE = dict(n_requests=8, batch=4, prompt_len=1024, max_new=32)
+TRAIN = dict(arch="gemma-2b", steps=6, global_batch=4, seq=1024)  # path E
+# path E's StepOptions: train.py's default (remat "block", ce_chunk 512, warmup 10, lr 1e-3)
+TRAIN_OPTS = dict(remat="block", ce_chunk=512, opt=dict(warmup_steps=10, peak_lr=1e-3))
+TRAIN_LOSS0_ATOL = 2.0  # step 0 near ln V: random weights give near-uniform logits
+# The card-vs-CPU step: float32 (TF32 off), full width cut to 2 layers.  Loss
+# and grad norm at float32 sums' tolerances; Adam's first step moves each
+# weight by about lr * sign(g), so an element whose tiny gradient changes
+# sign between the two summation orders moves by up to 2 lr the other way:
+# a share of 1e-4 of the elements may miss rtol 1e-4 / atol 1e-6 (never by
+# more than 2 lr).
+TRAIN_PARITY = dict(n_layers=2, batch=1, seq=64, loss_rtol=1e-5, grad_norm_rtol=1e-4,
+                    params_rtol=1e-4, params_atol=1e-6, params_off_share=1e-4)
 SMOKE_TOL = {"float32": dict(rtol=1e-4, atol=1e-3),  # tests/test_torch_models.py:43
              "bfloat16": dict(rtol=2e-2, atol=2e-2)}  # tests/test_torch_models.py:229
 
@@ -1210,6 +1235,280 @@ def smoke_card_vs_cpu(dev, arch: str, dtype: str, tag: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- refusals
+def phase_refusals(dev) -> None:
+    """The card's own limits stay refusals on the card and only there: an F
+    beyond a block's shared memory (moments) and a bf16 view off a 16-byte
+    boundary (flash's TMA) raise for CUDA tensors without a launch, and the
+    same inputs on the CPU take the plain versions."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moments as mo
+    from repro_torch.kernels.ref import flash_attention_ref, moments_and_labels_ref
+
+    fids = torch.zeros(16, dtype=torch.int32)
+    durs = torch.ones(16)
+    table = torch.zeros((20000, 5))
+    shifted = torch.zeros(1 * 64 * 2 * 64 + 1, dtype=torch.bfloat16)[1:].view(1, 64, 2, 64)
+    kv = torch.zeros((1, 64, 1, 64), dtype=torch.bfloat16)
+    before = read_counts()
+    for what, call, match in (
+            ("moments F 20000", lambda d: mo.moments_and_labels(
+                fids.to(d), durs.to(d), table.to(d)), "exceeds a block's"),
+            ("flash misaligned bf16", lambda d: fa.flash_attention(
+                torch.zeros(shifted.numel() + 1, dtype=torch.bfloat16, device=d)[1:]
+                .view(shifted.shape), kv.to(d), kv.to(d)), "16-byte boundary")):
+        try:
+            call(dev)
+        except ValueError as e:
+            if match not in str(e):
+                raise
+        else:
+            raise AssertionError(f"refusals: {what} was not refused on the card")
+    if read_counts() != before:
+        raise AssertionError("refusals: a refused call launched a kernel")
+    got_t, _ = mo.moments_and_labels(fids, durs, table)
+    want_t, _ = moments_and_labels_ref(fids, durs, table, 6.0, 10.0, 0)
+    if not torch.equal(got_t, want_t) or not torch.equal(
+            fa.flash_attention(shifted, kv, kv), flash_attention_ref(shifted, kv, kv)):
+        raise AssertionError("refusals: the CPU did not take the plain versions")
+    log("refusals: on the card moments F 20000 and a misaligned bf16 flash view raise "
+        "without a launch; on the CPU both take the plain versions")
+
+
+# -------------------------------------------------------------------- train
+def train_opts():
+    from repro_torch.launch.steps import StepOptions
+    from repro_torch.optim.adamw import OptConfig
+
+    return StepOptions(**{**TRAIN_OPTS, "opt": OptConfig(**TRAIN_OPTS["opt"])})
+
+
+def _timed_train_steps(TR, record):
+    """Patch ``TR.build_train_step`` so that each step the driver takes is
+    timed with CUDA events and its metrics kept (read after the run)."""
+    import torch
+
+    real = TR.build_train_step
+
+    def build(*args, **kw):
+        step = real(*args, **kw)
+
+        def timed(state, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, metrics = step(state, batch)
+            end.record()
+            record.append((start, end, metrics))
+            return state, metrics
+
+        return timed
+
+    TR.build_train_step = build
+    return real
+
+
+def phase_train(dev) -> dict:
+    """Main path E: repro_torch.launch.train.train on gemma-2b at its
+    published width (TRAIN), monitored, through the normal entry point; then
+    one traced step outside the driver (idle share, top kernels), one
+    full-width 2-layer float32 step on the card against the CPU, and the
+    exact-resume check on the smoke model."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataShard, SyntheticStream, to_device
+    from repro_torch.export.chrome_trace import validate_trace
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch import train as TR
+
+    opts = train_opts()
+
+    gc.collect()  # the serve paths' tensors are gone: free their cache
+    torch.cuda.empty_cache()
+    tag = f"train[{TRAIN['arch']}]"
+    cfg = configs.get_config(TRAIN["arch"])
+    steps, B, S = TRAIN["steps"], TRAIN["global_batch"], TRAIN["seq"]
+    record = []
+    real = _timed_train_steps(TR, record)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_counts()
+        try:
+            out = TR.train(arch=TRAIN["arch"], smoke=False, steps=steps, global_batch=B, seq=S,
+                           monitor_dir=tmp, export_trace=True, seed=0, opts=opts,
+                           log_every=1, device=dev)
+        finally:
+            TR.build_train_step = real
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        written = sorted(os.listdir(tmp))
+        with open(os.path.join(tmp, "trace.json")) as f:
+            trace_counts = validate_trace(json.load(f))
+    hist, mon = out["history"], out["monitor"]
+    losses = [h["loss"] for h in hist]
+    gnorms = [float(m["grad_norm"]) for _, _, m in record]
+    event_ms = [a.elapsed_time(b) for a, b, _ in record]
+    host_ms = [h["time_s"] * 1e3 for h in hist]
+    if [h["step"] for h in hist] != list(range(steps)) or len(record) != steps:
+        raise AssertionError(f"{tag}: steps {[h['step'] for h in hist]}, {len(record)} timed")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"{tag}: non-finite loss or grad norm: {losses} {gnorms}")
+    ln_v = math.log(cfg.vocab)
+    if abs(losses[0] - ln_v) > TRAIN_LOSS0_ATOL:
+        raise AssertionError(f"{tag}: step-0 loss {losses[0]:.4f} is not within "
+                             f"{TRAIN_LOSS0_ATOL} of ln V = {ln_v:.4f}")
+    if any(counts.values()):
+        raise AssertionError(f"{tag}: port kernels launched on the train path: {counts}")
+    want_files = ["history.json", "provenance.jsonl", "stream.jsonl", "trace.json", "viz.json"]
+    if written != want_files:
+        raise AssertionError(f"{tag}: monitor dir holds {written}, expected {want_files}")
+    if mon["frames"] != steps or mon["events"] != 6 * steps:  # 3 spans per step
+        raise AssertionError(f"{tag}: monitor saw {mon['frames']} frames, {mon['events']} "
+                             f"events for {steps} steps")
+    later_host = float(np.mean(host_ms[1:]))
+    later_event = float(np.mean(event_ms[1:]))
+    tok_per_s = B * S / (later_host / 1e3)
+    log(f"{tag}: full width, {cfg.n_params():,} parameters; global batch {B} x seq {S}, "
+        f"remat {opts.remat}, ce_chunk {opts.ce_chunk}, {steps} steps")
+    for i in range(steps):
+        log(f"{tag}: step {i} loss {losses[i]:.4f} grad_norm {gnorms[i]:.4f} host "
+            f"{host_ms[i]:.1f} ms, CUDA events {event_ms[i]:.1f} ms")
+    log(f"{tag}: steps 1-{steps - 1}: host {later_host:.1f} ms, CUDA events "
+        f"{later_event:.1f} ms per step, {tok_per_s:.0f} tokens/s (host); step-0 loss "
+        f"{losses[0]:.4f} vs ln V {ln_v:.4f}; peak memory {peak / 1e9:.2f} GB; "
+        f"port kernel launches {counts} (expected 0: training runs the plain versions)")
+    log(f"{tag}: monitor wrote {written}; frames {mon['frames']} events {mon['events']} "
+        f"anomalies {mon['anomalies']} stragglers {mon['stragglers']}; trace.json "
+        f"{trace_counts}")
+
+    # One traced step outside the driver, same configuration, a fresh state.
+    del out, record
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_fn = TS.build_train_step(cfg, TS.make_shard_ctx(cfg, None, B, opts), opts)
+    state = TS.make_train_state(cfg, 0, device=dev)
+    batch = to_device(SyntheticStream(cfg, DataShard(0, 1, B), S).batch_at(0), dev)
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], _ = step_fn(holder["state"], batch)
+
+    one_step()
+    prof = device_breakdown(one_step)
+    del holder, state, batch, step_fn
+    log(f"{tag}: one step traced: {prof['host_ops']} top-level aten ops, wall "
+        f"{prof['wall_ms']:.1f} ms, device busy {prof['device_ms']:.1f} ms, idle share "
+        + (f"{prof['idle_share']:.3f}" if prof["idle_share"] is not None else "not measured")
+        + "; top kernels (ms): " + ", ".join(f"{n} {m:.3f}" for n, m in prof["top"].items()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    parity = train_card_vs_cpu(dev, tag)
+    resume = train_resume_on_card(dev, tag)
+    return {"counts": counts, "losses": losses, "grad_norms": gnorms, "host_ms": host_ms,
+            "event_ms": event_ms, "step_ms": later_event, "step_host_ms": later_host,
+            "tok_per_s": tok_per_s, "peak_bytes": peak, "idle_share": prof["idle_share"],
+            "device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
+            "card_vs_cpu": parity, "resume": resume}
+
+
+def train_card_vs_cpu(dev, tag: str) -> dict:
+    """One build_train_step step of gemma-2b at its published width cut to
+    TRAIN_PARITY's layers, in float32, from one seed's params on the CPU
+    copied to the card: loss, grad norm and params after the step, card vs
+    CPU, at TRAIN_PARITY's tolerances."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch import tree as T
+    from repro_torch.launch import steps as TS
+
+    cfg = dataclasses.replace(configs.get_config(TRAIN["arch"]),
+                              n_layers=TRAIN_PARITY["n_layers"], compute_dtype=torch.float32)
+    Bp, Sp = TRAIN_PARITY["batch"], TRAIN_PARITY["seq"]
+    opts = train_opts()
+    step_fn = TS.build_train_step(cfg, TS.make_shard_ctx(cfg, None, Bp, opts), opts)
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, cfg.vocab, (Bp, Sp + 1))
+    batch = {"tokens": torch.from_numpy(tokens[:, :-1].astype(np.int32)),
+             "labels": torch.from_numpy(tokens[:, 1:].astype(np.int32))}
+    cpu_state = TS.make_train_state(cfg, SEED, device="cpu")
+    before = {name: t.clone() for name, t in T.paths(cpu_state["params"])}
+    dev_state = T.map(lambda t: t.to(dev, copy=True), cpu_state)
+    t0 = time.perf_counter()
+    dev_state, dev_m = step_fn(dev_state, {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_state, cpu_m = step_fn(cpu_state, batch)
+    cpu_s = time.perf_counter() - t0
+    tol = TRAIN_PARITY
+    for name in ("loss", "grad_norm"):
+        got, want = float(dev_m[name]), float(cpu_m[name])
+        if not abs(got - want) <= tol[f"{name}_rtol"] * abs(want):
+            raise AssertionError(f"{tag}: card vs CPU {name} {got} vs {want} beyond rtol "
+                                 f"{tol[f'{name}_rtol']}")
+    lr = float(cpu_m["lr"])
+    worst, n_off, n_all = 0.0, 0, 0
+    for (name, want), got in zip(T.paths(cpu_state["params"]), T.leaves(dev_state["params"])):
+        got = got.cpu()
+        err = (got - want).abs()
+        off = err > tol["params_atol"] + tol["params_rtol"] * want.abs()
+        n_off += int(off.sum())
+        n_all += want.numel()
+        worst = max(worst, float(err.max()))
+        moved = (want - before[name]).abs().max()
+        if float(err.max()) > 2 * lr * (1 + float(before[name].abs().max())) or \
+                not bool(torch.isfinite(got).all()) or float(moved) == 0.0:
+            raise AssertionError(f"{tag}: card vs CPU {name}: max abs diff "
+                                 f"{float(err.max())} (lr {lr}), moved {float(moved)}")
+    if n_off > tol["params_off_share"] * n_all:
+        raise AssertionError(f"{tag}: card vs CPU params: {n_off} of {n_all} beyond rtol "
+                             f"{tol['params_rtol']} / atol {tol['params_atol']}")
+    log(f"{tag}: card vs CPU, one float32 step at full width cut to {cfg.n_layers} layers "
+        f"({cfg.n_params():,} parameters), batch {Bp} x {Sp}: loss {float(dev_m['loss']):.6f} "
+        f"vs {float(cpu_m['loss']):.6f}, grad norm {float(dev_m['grad_norm']):.6f} vs "
+        f"{float(cpu_m['grad_norm']):.6f}; params after the step: {n_off} of {n_all} beyond "
+        f"rtol {tol['params_rtol']} / atol {tol['params_atol']} (at most a share of "
+        f"{tol['params_off_share']}), max abs diff {worst:.3g} (lr {lr:.3g}); card "
+        f"{card_s:.2f} s, CPU {cpu_s:.2f} s")
+    return {"loss": float(dev_m["loss"]), "cpu_loss": float(cpu_m["loss"]),
+            "params_beyond_tol": n_off, "params": n_all, "max_abs_diff": worst}
+
+
+def train_resume_on_card(dev, tag: str) -> dict:
+    """tests/test_training.py:63 on the card: crash at step 12, resume from
+    the step-10 checkpoint, the final loss of an uninterrupted run at rtol
+    1e-5."""
+    from repro_torch.launch.train import train
+
+    kw = dict(arch=TRAIN["arch"], steps=20, global_batch=4, seq=32, ckpt_interval=5,
+              log_every=100, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        full = train(ckpt_dir=os.path.join(tmp, "a"), **kw)
+        try:
+            train(ckpt_dir=os.path.join(tmp, "b"), fail_at=12, **kw)
+        except RuntimeError as e:
+            if "injected node failure" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{tag}: fail_at=12 did not fail")
+        resumed = train(ckpt_dir=os.path.join(tmp, "b"), **kw)
+    if resumed["history"][0]["step"] != 10:
+        raise AssertionError(f"{tag}: resumed at step {resumed['history'][0]['step']}, not 10")
+    a, b = full["final_loss"], resumed["final_loss"]
+    if not abs(a - b) <= 1e-5 * abs(a):
+        raise AssertionError(f"{tag}: exact resume on the card: final loss {b} after the "
+                             f"restart vs {a} uninterrupted, beyond rtol 1e-5")
+    log(f"{tag}: exact resume on the card (smoke, 20 steps, failure at 12, resumed from "
+        f"step 10): final loss {b:.8f} vs {a:.8f} uninterrupted (rtol 1e-5)")
+    return {"final_loss": a, "resumed_final_loss": b}
+
+
 # --------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -1232,6 +1531,7 @@ def main() -> int:
     flash = phase_flash(dev, flash_agree)
     scan_agree = OutputAgreement()
     scan = phase_scan(dev, scan_agree)
+    phase_refusals(dev)
 
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0,
@@ -1244,9 +1544,10 @@ def main() -> int:
     served = phase_serve(dev, "gemma-2b", "flash_attention",
                          bf16_smokes=("gemma-2b", "gemma2-2b"))
     served_ssm = phase_serve(dev, "falcon-mamba-7b", "mamba_scan")
+    trained = phase_train(dev)
 
     paths = {"trace": trace["counts"], "width": width["counts"], "serve": served["counts"],
-             "serve_ssm": served_ssm["counts"]}
+             "serve_ssm": served_ssm["counts"], "train": trained["counts"]}
     needs = {"trace": "moments_and_labels", "width": "moments_and_labels",
              "serve": "flash_attention", "serve_ssm": "mamba_scan"}
     for path, name in needs.items():

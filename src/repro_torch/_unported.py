@@ -8,7 +8,7 @@ asked for, instead of importing ``repro`` or skipping the option quietly.
 from __future__ import annotations
 
 
-def unported(what: str, item: int = 2) -> NotImplementedError:
+def unported(what: str, item="2") -> NotImplementedError:
     """``what`` waits for ROADMAP.md queue 1, item ``item``."""
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, item {item})"

@@ -1,9 +1,14 @@
-"""Stats tables and model parameters carried across: the JAX package, the port.
+"""Stats tables, model parameters and train states carried across: the JAX
+package, the port.
 
 Model parameters (:func:`params_from_jax`, :func:`params_to_numpy`) keep
 the JAX tree's shape: ``{"embed", "final_ln", ["unembed"], "layers": [...]}``
 with layer leaves stacked over periods, so each port leaf has the flat name
-of its JAX tree path (:func:`flat_names`, ``jax.tree_util.keystr``).
+of its JAX tree path (:func:`flat_names`, ``jax.tree_util.keystr``).  A
+train state (:func:`train_state_from_jax`, :func:`train_state_to_numpy`)
+is ``{"params", "m", "v", "step"}`` and, with a float32 master beside bf16
+params, ``"master"``, as ``launch.steps.make_train_state`` makes it in
+both packages.
 
 Stats tables:
 
@@ -24,12 +29,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List
 
 from .core import stats as _host
 from .core.torch_ad import NCOLS
 from .device import resolve
 from .models.common import ModelConfig, param_shapes
+from .tree import paths as _paths
 
 HOST_COLUMNS = [_host.N, _host.MEAN, _host.M2, _host.MIN, _host.MAX]
 
@@ -58,28 +64,19 @@ def table_to_numpy(table: torch.Tensor) -> np.ndarray:
 
 
 # ----------------------------------------------------------------- parameters
-def _paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
-    """(keystr path, leaf) pairs in jax.tree_util's order: dict keys sorted.
-    Dicts and lists are the tree's nodes; anything else (a shape tuple too)
-    is a leaf."""
-    if isinstance(tree, dict):
-        return [pair for key in sorted(tree) for pair in _paths(tree[key], f"{prefix}['{key}']")]
-    if isinstance(tree, list):
-        return [pair for i, sub in enumerate(tree) for pair in _paths(sub, f"{prefix}[{i}]")]
-    return [(prefix, tree)]
-
-
 def flat_names(params) -> List[str]:
     """The flat leaf names of a parameter tree, as ``jax.tree_util.keystr``
     prints the JAX tree's paths (``['layers'][0]['wq']``), in its order."""
     return [path for path, _ in _paths(params)]
 
 
-def params_from_jax(tree, cfg: ModelConfig, *, device=None) -> Dict[str, Any]:
+def params_from_jax(tree, cfg: ModelConfig, *, device=None, dtype=None) -> Dict[str, Any]:
     """A JAX ``init_params`` tree (leaves as numpy) -> the port's parameters
-    in ``cfg.param_dtype`` on ``device``; the tree must hold exactly the
-    leaves and shapes ``cfg`` implies."""
+    in ``dtype`` (default ``cfg.param_dtype``) on ``device``; the tree must
+    hold exactly the leaves and shapes ``cfg`` implies.  bf16 leaves
+    (``ml_dtypes``) widen to float32 exactly on the way."""
     device = resolve(device)
+    dtype = cfg.param_dtype if dtype is None else dtype
     want = dict(_paths(param_shapes(cfg)))
     got = dict(_paths(tree))
     if set(got) != set(want):
@@ -90,7 +87,7 @@ def params_from_jax(tree, cfg: ModelConfig, *, device=None) -> Dict[str, Any]:
         arr = np.array(arr, dtype=np.float32)  # a copy; bf16 leaves widen exactly
         if tuple(arr.shape) != tuple(want[path]):
             raise ValueError(f"{path}: shape {arr.shape}, expected {want[path]}")
-        return torch.from_numpy(arr).to(device, cfg.param_dtype)
+        return torch.from_numpy(arr).to(device, dtype)
 
     out: Dict[str, Any] = {k: leaf(f"['{k}']", tree[k]) for k in tree if k != "layers"}
     out["layers"] = [{name: leaf(f"['layers'][{i}]['{name}']", arr) for name, arr in layer.items()}
@@ -107,4 +104,33 @@ def params_to_numpy(params) -> Dict[str, Any]:
 
     out: Dict[str, Any] = {k: leaf(v) for k, v in params.items() if k != "layers"}
     out["layers"] = [{k: leaf(v) for k, v in layer.items()} for layer in params["layers"]]
+    return out
+
+
+# ----------------------------------------------------------------- train state
+def train_state_from_jax(state, cfg: ModelConfig, *, device=None) -> Dict[str, Any]:
+    """A JAX ``make_train_state`` tree (leaves as numpy) -> the port's train
+    state on ``device``: m, v and a master in float32, params in float32 or,
+    beside a master, bf16 (each bit as JAX holds it), step an int32 scalar."""
+    device = resolve(device)
+    master = "master" in state
+    out = {
+        "params": params_from_jax(state["params"], cfg, device=device,
+                                  dtype=torch.bfloat16 if master else torch.float32),
+        "m": params_from_jax(state["m"], cfg, device=device, dtype=torch.float32),
+        "v": params_from_jax(state["v"], cfg, device=device, dtype=torch.float32),
+        "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32, device=device),
+    }
+    if master:
+        out["master"] = params_from_jax(state["master"], cfg, device=device,
+                                        dtype=torch.float32)
+    return out
+
+
+def train_state_to_numpy(state) -> Dict[str, Any]:
+    """The port's train state -> numpy trees of the JAX state's shape: float32
+    leaves (bf16 params widen exactly; ``jnp.asarray(x, jnp.bfloat16)`` gives
+    them back) and an int32 step."""
+    out = {k: params_to_numpy(state[k]) for k in ("params", "m", "v", "master") if k in state}
+    out["step"] = np.asarray(int(state["step"]), dtype=np.int32)
     return out

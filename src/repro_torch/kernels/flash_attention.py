@@ -110,9 +110,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k and v must be contiguous")
     if -(-q.shape[1] // plan(q.dtype, hd)["block_q"]) > MAX_Q_TILES:
         raise ValueError(f"Sq {q.shape[1]} needs more than {MAX_Q_TILES} query tiles")
-    if q.dtype == torch.bfloat16:  # the tensor-core instance loads through TMA
-        for t in (q, k, v):
-            check_tma(t)
 
 
 def flash_attention(
@@ -137,7 +134,10 @@ def flash_attention(
                                    scale=scale, kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if q.dtype == torch.bfloat16:  # the tensor-core instance loads through TMA
+        for t in (q, k, v):
+            check_tma(t)
+    elif any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on a 16-byte boundary")
 
     global launches

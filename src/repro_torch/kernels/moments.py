@@ -106,9 +106,6 @@ def _check(fids: torch.Tensor, durs: torch.Tensor, table_sums: torch.Tensor,
         raise ValueError("table_sums needs at least one row")
     if block_events < 1:
         raise ValueError("block_events must be positive")
-    if smem_bytes(F, min(block_events, max(n, 1))) > SMEM_LIMIT:
-        raise ValueError(f"F={F} with block_events={block_events} exceeds a block's "
-                         f"{SMEM_LIMIT} bytes of shared memory")
     return dev, n, F
 
 
@@ -133,6 +130,9 @@ def moments_and_labels(
         if dev.type == "cpu":
             return moments_and_labels_ref(fids, durs, table_sums, alpha, min_count, fid_offset)
         raise ValueError(f"moments_and_labels runs on cuda or cpu, not {dev}")
+    if smem_bytes(F, min(block_events, max(n, 1))) > SMEM_LIMIT:  # the card's limit only
+        raise ValueError(f"F={F} with block_events={block_events} exceeds a block's "
+                         f"{SMEM_LIMIT} bytes of shared memory")
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
             return _launch(fids, durs, table_sums, dev, n, F, alpha, min_count,

@@ -1,8 +1,9 @@
-"""The model (port of ``repro.models.model``): forward, prefill, decode.
+"""The model (port of ``repro.models.model``): forward, loss, prefill, decode.
 
 Modes:
-  forward      full-sequence pass (attention through ``layers.attention``,
-               Mamba through ``mamba.mamba_sequence``)
+  forward / loss_and_metrics
+               full-sequence pass (attention through ``layers.attention``,
+               Mamba through ``mamba.mamba_sequence``); the training path
   prefill      sequence pass that also builds the decode cache; its
                attention runs the hand-written flash kernel and its Mamba
                layers the hand-written scan kernel (``kernels.ops``)
@@ -17,9 +18,14 @@ Differences of form, not of values, from the JAX package:
     caches keep JAX's layout, stacked over periods per layout position.
   * The cache is updated in place (JAX donates it instead), and its ``pos``
     is a host int, so a decode step never waits on the device for it.
-  * The entry points take weights already in the compute dtype: cast the
-    float32 master weights once with :func:`compute_params` (see there),
-    where JAX casts them inside every call.
+  * forward, prefill and decode_step take weights already in the compute
+    dtype: cast the float32 master weights once with :func:`compute_params`
+    (see there), where JAX casts them inside every call.  The training
+    path, :func:`loss_and_metrics`, takes the master weights and casts them
+    where JAX does (in each block, in the embedding lookup and in each
+    cross-entropy chunk's unembedding), so autograd carries float32
+    gradients back to them.
+  * ``jax.checkpoint`` is ``torch.utils.checkpoint`` (non-reentrant).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
 from ..kernels import ops
@@ -39,9 +46,10 @@ from .common import MAMBA, MLA, MOE, NONE, SWA, LayerSpec, ModelConfig, unported
 
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
-    """How the current step runs: a placeholder, since the port runs on one
-    device.  Meshes, sequence parallelism and remat wait for ROADMAP.md
-    queue 1, items 5 and 11."""
+    """How the current step runs.  The port runs on one device: meshes and
+    sequence parallelism wait for ROADMAP.md queue 1, item 11."""
+
+    remat: str = "none"  # none | block
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -64,7 +72,13 @@ def embed_tokens(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]) -> to
     if params["embed"].dtype != cfg.compute_dtype:
         raise ValueError(f"weights are {params['embed'].dtype}, the config computes in "
                          f"{cfg.compute_dtype}: pass compute_params(cfg, params)")
-    x = F.embedding(batch["tokens"], params["embed"])
+    return _embed(cfg, params["embed"], batch["tokens"])
+
+
+def _embed(cfg: ModelConfig, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` cast to the compute dtype (a no-op for compute
+    weights), scaled as gemma scales them."""
+    x = F.embedding(tokens, table).to(cfg.compute_dtype)
     if cfg.emb_scale:
         # The scale is rounded to the compute dtype before the multiply, as
         # in JAX: in bf16, sqrt(2048) = 45.2548 becomes 45.25.
@@ -86,9 +100,9 @@ def unembed(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     """-> float32 logits over the padded vocab, padding columns at -1e30."""
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].T
+        logits = x @ params["embed"].T.to(cfg.compute_dtype)
     else:
-        logits = x @ params["unembed"]
+        logits = x @ params["unembed"].to(cfg.compute_dtype)
     logits = L.softcap(logits.float(), cfg.logit_softcap)
     if cfg.vocab_padded != cfg.vocab:  # mask the padding columns exactly
         pad_ok = torch.arange(cfg.vocab_padded, device=logits.device) < cfg.vocab
@@ -189,19 +203,95 @@ def apply_block(cfg, spec: LayerSpec, p, x, cos, sin) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------- forward
-def hidden_states(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
-    x = embed_tokens(cfg, params, batch)
+def _cast_block(cfg, spec: LayerSpec, p, x, cos, sin) -> torch.Tensor:
+    """apply_block on compute-dtype casts of ``p`` (no-ops for compute weights)."""
+    return apply_block(cfg, spec, _cast_block_params(p, cfg.compute_dtype), x, cos, sin)
+
+
+def _unstacked(params) -> List[List[Dict[str, torch.Tensor]]]:
+    """Each period's weights, ``[period][layout position]``, as views made by
+    one ``unbind`` per stacked leaf.  Autograd then stacks each leaf's
+    gradient once; indexing the stacked tensor once per period instead
+    gives every period a full-size zero gradient to add up (at gemma-2b's
+    width 18 × 7.9 GB of fills and adds per step)."""
+    per_pos = [{k: v.unbind(0) for k, v in layer.items()} for layer in params["layers"]]
+    n_periods = len(next(iter(per_pos[0].values())))
+    return [[{k: t[period] for k, t in pos.items()} for pos in per_pos]
+            for period in range(n_periods)]
+
+
+def _period(cfg: ModelConfig, layers: List[Dict[str, torch.Tensor]], x, cos, sin,
+            remat: str) -> torch.Tensor:
+    for spec, p in zip(cfg.layout, layers):
+        if remat == "block" and cfg.period > 1:
+            # nested remat, as JAX: a multi-layer period would otherwise hold
+            # all its layers' intermediates in the backward working set
+            x = checkpoint(_cast_block, cfg, spec, p, x, cos, sin, use_reentrant=False)
+        else:
+            x = _cast_block(cfg, spec, p, x, cos, sin)
+    return x
+
+
+def _layers(cfg: ModelConfig, params, x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    if ctx.remat not in ("none", "block"):
+        raise ValueError(f"remat must be 'none' or 'block', got {ctx.remat!r}")
     B, S, _ = x.shape
     cos, sin = _rope_cos_sin(cfg, _positions(cfg, B, S, device=x.device), cfg.qk_dim)
-    for period in range(cfg.n_periods):
-        for pos, spec in enumerate(cfg.layout):
-            x = apply_block(cfg, spec, _layer(params, pos, period), x, cos, sin)
+    for layers in _unstacked(params):
+        if ctx.remat == "block":  # each period's activations recomputed in backward
+            x = checkpoint(_period, cfg, layers, x, cos, sin, ctx.remat, use_reentrant=False)
+        else:
+            x = _period(cfg, layers, x, cos, sin, ctx.remat)
     return x
+
+
+def hidden_states(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
+    return _layers(cfg, params, embed_tokens(cfg, params, batch), ctx)
 
 
 def forward(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
     logits = unembed(cfg, params, hidden_states(cfg, params, batch, ctx))
     return logits[..., : cfg.vocab]  # crop padding (API surface only)
+
+
+def _ce_chunk(cfg: ModelConfig, params, xc: torch.Tensor, lc: torch.Tensor):
+    """(Σ masked token loss, Σ mask, Σ hits) of one sequence chunk."""
+    logits = unembed(cfg, params, xc)  # over vocab_padded, as JAX (no crop)
+    logp = torch.log_softmax(logits, dim=-1)
+    mask = (lc >= 0).to(torch.float32)
+    # torch.gather refuses the label -1 that JAX's take_along_axis takes:
+    # clamp it, and the mask drops it
+    tl = -torch.gather(logp, -1, lc.clamp(min=0).long()[..., None])[..., 0]
+    hit = ((logits.argmax(-1) == lc) * mask).sum()
+    return (tl * mask).sum(), mask.sum(), hit
+
+
+def loss_and_metrics(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx(),
+                     ce_chunk: int = 1024):
+    """Next-token CE with sequence-chunked unembedding, on master weights.
+
+    Full logits of a 256k-vocab model are (B·S·V).  Chunking the
+    unembed+CE over the sequence, each chunk under a checkpoint, keeps live
+    logits at (B, chunk, V); the backward pass recomputes each chunk's
+    logits from the final hidden states.  -> (loss, {"loss", "accuracy",
+    "tokens"}), float32 scalars on the weights' device.
+    """
+    _check_supported(cfg)
+    x = _layers(cfg, params, _embed(cfg, params["embed"], batch["tokens"]), ctx)
+    B, S, _ = x.shape
+    labels = batch["labels"]
+    cs = min(ce_chunk, S)
+    if S % cs != 0:
+        cs = S  # fall back to unchunked
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    lsum, msum, hits = zero, zero, zero
+    for c in range(S // cs):
+        sl = slice(c * cs, (c + 1) * cs)
+        l, m, h = checkpoint(_ce_chunk, cfg, params, x[:, sl], labels[:, sl],
+                             use_reentrant=False)
+        lsum, msum, hits = lsum + l, msum + m, hits + h
+    loss = lsum / torch.clamp(msum, min=1.0)
+    return loss, {"loss": loss, "accuracy": hits / torch.clamp(msum, min=1.0), "tokens": msum}
 
 
 # ------------------------------------------------------------------- cache

@@ -206,9 +206,17 @@ class ChimbukoMonitor:
         self._trace_writer = None
         self._stream_writer = None
         if export_trace:
-            raise unported("ChimbukoMonitor(export_trace=...) (repro.export)")
+            from repro_torch.export.chrome_trace import ChromeTraceWriter
+
+            self._trace_writer = ChromeTraceWriter(path=export_trace)
         if stream_path:
-            raise unported("ChimbukoMonitor(stream_path=...) (repro.export)")
+            from repro_torch.export.record_stream import RecordStreamWriter
+
+            # prov_append governs the whole resume: a resumed run appends to
+            # its record stream exactly like it appends to its provenance
+            # store (one header, prior frames preserved).
+            self._stream_writer = RecordStreamWriter(stream_path,
+                                                     append=prov_append)
         # live viz gateway (paper §IV's online server): HTTP views + /trace
         # + WebSocket per-frame broadcast, on the repro.net event loop.
         self.frames_ingested = 0
@@ -407,8 +415,21 @@ class ChimbukoMonitor:
     # ----------------------------------------------------------- span fleet
     def _federate_spans(self, dump: bool, reason: str) -> List[str]:
         """Pull every process's flight recorder into the monitor-side
-        per-proc archive (``_span_views``); returns degraded-shard errors."""
-        raise unported("span federation (repro.telemetry.federate)")
+        per-proc archive (``_span_views``); returns degraded-shard errors.
+
+        Without shard endpoints this is the local half of
+        ``repro.telemetry.federate.federated_spans``: the monitor's own
+        flight recorder.  Shard processes wait for ROADMAP.md queue 1, item 2b."""
+        if self.shard_endpoints:
+            raise unported("span federation (repro.telemetry.federate)")
+        ring = get_ring()
+        if dump:
+            ring.dump(reason)
+        dst = self._span_views.setdefault("monitor", {})
+        for span in ring.collect():
+            key = (span["trace"], span["span"])
+            dst[key] = prefer_recording(dst.get(key), span)
+        return []
 
     def quiesce(self, dump: bool = True) -> dict:
         """Deterministic settle point: flush + drain every in-flight write,
@@ -439,7 +460,10 @@ class ChimbukoMonitor:
         return out
 
     def _render_spans(self) -> None:
-        raise unported("span rendering (repro.export)")
+        from repro_torch.export.chrome_trace import render_spans
+
+        self._federate_spans(dump=True, reason="close")
+        render_spans(self._trace_writer, self.fleet_spans())
 
     def close(self) -> None:
         self.flush_ps()

@@ -316,21 +316,50 @@ def test_flash_bf16_rounding_of_p_fits_the_tolerance(case):
 
 
 def test_flash_wrapper_raises_where_tma_cannot_load():
-    """A bf16 input TMA cannot take is refused on every device.  A start off
-    a 16-byte boundary reaches the wrapper; strides that TMA refuses cannot
-    (the wrapper also needs contiguous inputs of a built head dim), so
-    check_tma, which the wrapper calls, is held to them directly."""
+    """A bf16 input TMA cannot take is refused on the card (the wrapper calls
+    check_tma on CUDA tensors only; see the two tests below).  Strides that
+    TMA refuses cannot reach the wrapper (it also needs contiguous inputs of
+    a built head dim), so check_tma is held to each rule directly."""
     kv = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
     shifted = torch.zeros(1 * 8 * 4 * 64 + 1, dtype=torch.bfloat16)[1:].view(1, 8, 4, 64)
     assert shifted.is_contiguous() and shifted.data_ptr() % 16
     with pytest.raises(ValueError, match="16-byte boundary"):
-        tfa.flash_attention(shifted, kv, kv)
+        tfa.check_tma(shifted)
     with pytest.raises(ValueError, match="multiples of 16 bytes"):  # rows of 65 columns
         tfa.check_tma(torch.zeros((1, 8, 4, 65), dtype=torch.bfloat16)[..., :64])
     with pytest.raises(ValueError, match="head dim contiguous"):
         tfa.check_tma(torch.zeros((1, 8, 64, 4), dtype=torch.bfloat16).transpose(2, 3))
     f32 = torch.zeros(1 * 8 * 4 * 64 + 1)[1:].view(1, 8, 4, 64)  # no TMA in float32
     assert tfa.flash_attention(f32, kv.float(), kv.float()).shape == f32.shape
+
+
+def test_flash_wrapper_takes_a_misaligned_bf16_view_on_the_cpu():
+    """TMA's 16-byte rule is the card's: a contiguous bf16 view one element
+    into its storage takes the plain version on the CPU, as the JAX wrapper
+    takes the same values."""
+    q, k, v = _torch(_inputs(1, 64, 64, 2, 1, 64, "bfloat16", 5), "bfloat16")
+    shifted = torch.empty(q.numel() + 1, dtype=torch.bfloat16)[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = tfa.launches
+    got = tfa.flash_attention(shifted, k, v, causal=True)
+    assert torch.equal(got, flash_attention_ref(q, k, v, causal=True))
+    assert tfa.launches == before
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_refuses_a_misaligned_bf16_view_on_the_card(card):
+    kv = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=card)
+    shifted = torch.zeros(1 * 8 * 4 * 64 + 1, dtype=torch.bfloat16, device=card)[1:]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tfa.flash_attention(shifted.view(1, 8, 4, 64), kv, kv)
 
 
 def test_build_keeps_each_compiler_output_beside_its_library(tmp_path, monkeypatch):

@@ -129,7 +129,7 @@ def test_monitor_copy_matches_the_original_on_identical_frames(layout, tmp_path)
 
 
 @pytest.mark.parametrize("option", [
-    dict(export_trace="trace.json"), dict(stream_path="stream.bin"), dict(viz_serve=0),
+    dict(viz_serve=0),
     dict(ps_transport="socket", shard_endpoints=["127.0.0.1:1"]),
     dict(provdb_transport="socket", shard_endpoints=["127.0.0.1:1"]),
     dict(ps_wal_dir="wal"),
@@ -143,7 +143,13 @@ def test_span_federation_raises_and_the_run_info_names_torch(tmp_path):
     from repro_torch.core.provenance import static_provenance
     from repro_torch.core.ps import FederatedPS
 
-    mon = TMonitor(num_funcs=4, trace_spans=True)
+    mon = TMonitor(num_funcs=4, trace_spans=True)  # no shard: the local recorder only
+    try:
+        assert mon.quiesce() == {"errors": []}
+    finally:
+        tspans.set_enabled(False)
+        mon.close()
+    mon = TMonitor(num_funcs=4, trace_spans=True, shard_endpoints=[("127.0.0.1", 1)])
     try:
         with pytest.raises(NotImplementedError, match="span federation"):
             mon.quiesce()
