@@ -60,6 +60,18 @@ non-zero):
            kernels); one float32 step of the same width cut to 2 layers on the
            card against the CPU; and the exact-resume check on the smoke
            model (tests/test_training.py:63) on the card;
+  train_socket  main path F: path E's run for 24 steps with an injected
+           straggler, the monitor's PS and provenance DB in two supervised
+           shard worker processes (socket transports, a PS write-ahead log),
+           against a local-transport run of the same configuration: (F-a)
+           equal losses, socket transports in the summary, at least one
+           anomaly; the frames that run's monitor ingested are archived and
+           (F-b) replayed offline with local transports to the live events,
+           anomalies and PS table; (F-c) replayed twice through a supervised
+           worker pool with a WAL, once with two seed-chosen SIGKILLs: PS
+           snapshot and provenance files byte-identical, anomalies equal;
+           step times, tokens/s and peak memory beside path E's, the
+           workers' spawn time, each respawn and the replay rates;
 
 then the script's wall time, the card's name and power limit, one JSON line
 describing every ported kernel, and last
@@ -68,6 +80,7 @@ no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -141,6 +154,19 @@ SERVE = dict(n_requests=8, batch=4, prompt_len=1024, max_new=32)
 TRAIN = dict(arch="gemma-2b", steps=6, global_batch=4, seq=1024)  # path E
 # path E's StepOptions: train.py's default (remat "block", ce_chunk 512, warmup 10, lr 1e-3)
 TRAIN_OPTS = dict(remat="block", ce_chunk=512, opt=dict(warmup_steps=10, peak_lr=1e-3))
+# Path F: path E's configuration with the monitor's PS and provenance in two
+# supervised shard worker processes.  24 steps, the straggler at step 20: the
+# socket federation's PS aggregate refreshes every 16 frames
+# (ChimbukoMonitor(ps_aggregate_every=16)), and before the first refresh it is
+# empty, so no call of steps 0-15 can be labelled; a self-inclusive mu +- 6
+# sigma over n samples bounds any z to sqrt(n - 1), so the local PS cannot
+# label one either in fewer than 38 steps.  Steps 16-30 are labelled against
+# steps 0-15.  Losses against the local run at the card's exact-resume rtol.
+TRAIN_SOCKET = dict(steps=24, inject_straggler_at=20, shards=2, loss_rtol=1e-5,
+                    chaos_seed=2026)
+# The training driver's monitor settings (launch/train.py), for the replays.
+TRAIN_MONITOR = dict(num_funcs=32, kw=dict(min_samples=8, alpha=6.0, straggler_alpha=3.0,
+                                           straggler_min_steps=8))
 TRAIN_LOSS0_ATOL = 2.0  # step 0 near ln V: random weights give near-uniform logits
 # The card-vs-CPU step: float32 (TF32 off), full width cut to 2 layers.  Loss
 # and grad norm at float32 sums' tolerances; Adam's first step moves each
@@ -296,11 +322,12 @@ def _lost_launches(by_kernel, calls, launched) -> str:
     return ""
 
 
-def profiled(fn, calls: int, tries: int = 3):
+def profiled(fn, calls: int, tries: int = 6):
     """``_profile`` taken again (at most ``tries`` times in all) while the
     profiler has lost a launch; raises if it still has.  A profile with no
     device time at all is returned as it is: its device times then read
-    "not measured"."""
+    "not measured".  (Three profiles in a row lost scan launches in one
+    H100 run, hence six.)"""
     for _ in range(tries):
         by_kernel, wall_ms, launched, ops = _profile(fn, calls)
         why = _lost_launches(by_kernel, calls, launched)
@@ -1509,6 +1536,338 @@ def train_resume_on_card(dev, tag: str) -> dict:
     return {"final_loss": a, "resumed_final_loss": b}
 
 
+# ------------------------------------------------------------ train, socket
+@contextlib.contextmanager
+def archived_monitor(store, seen: dict):
+    """For one run: every frame a ChimbukoMonitor ingests is also written to
+    ``store`` (a FrameStore; None writes nothing); ``seen`` receives the
+    monitor, the host seconds of each ingest (the monitor's cost to the
+    training loop, outside the driver's step time), and at close the PS
+    snapshot and function registry (read before the shards go away)."""
+    from repro_torch.trace.monitor import ChimbukoMonitor
+
+    real_ingest, real_close = ChimbukoMonitor.ingest, ChimbukoMonitor.close
+    seen["ingest_s"] = []
+
+    def ingest(self, frame, *args, **kw):
+        seen["monitor"] = self
+        if store is not None:
+            store.write(frame)
+        t0 = time.perf_counter()
+        try:
+            return real_ingest(self, frame, *args, **kw)
+        finally:
+            seen["ingest_s"].append(time.perf_counter() - t0)
+
+    def close(self):
+        if self is seen.get("monitor") and "snapshot" not in seen:
+            seen["snapshot"] = self.ps.snapshot().table.copy()
+            seen["registry"] = self.registry
+        return real_close(self)
+
+    ChimbukoMonitor.ingest, ChimbukoMonitor.close = ingest, close
+    try:
+        yield seen
+    finally:
+        ChimbukoMonitor.ingest, ChimbukoMonitor.close = real_ingest, real_close
+
+
+@contextlib.contextmanager
+def timed_spawn(out: list):
+    """Time each ``resolve_endpoints`` call the driver makes (the worker pool's
+    spawn, handshakes included)."""
+    from repro_torch.launch import shard_server
+
+    real = shard_server.resolve_endpoints
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kw)
+        finally:
+            out.append(time.perf_counter() - t0)
+
+    shard_server.resolve_endpoints = timed
+    try:
+        yield out
+    finally:
+        shard_server.resolve_endpoints = real
+
+
+def _step_means(hist, record, skip):
+    """Mean host and CUDA-event ms over the steps not in ``skip``."""
+    keep = [i for i in range(len(hist)) if i not in skip]
+    host = float(np.mean([hist[i]["time_s"] * 1e3 for i in keep]))
+    event = float(np.mean([record[i][0].elapsed_time(record[i][1]) for i in keep]))
+    return host, event
+
+
+def replay_through_pool(store, registry, out_dir: str, kills=()) -> dict:
+    """Replay an archive through two supervised shard worker processes with a
+    PS write-ahead log (tests/test_fault.py:_chaos_run's configuration);
+    ``kills`` are (frame ordinal, worker) SIGKILLs after that frame's ingest.
+    Returns the PS snapshot, the summary, the provenance files' bytes, the
+    pool's restarts and, per kill, the respawn seconds and the frames
+    ingested while that worker was down."""
+    import threading
+
+    from repro_torch.core import offline
+    from repro_torch.core.provenance import shard_paths
+    from repro_torch.fault.chaos import kill_process
+    from repro_torch.fault.policy import RetryPolicy
+    from repro_torch.launch.shard_server import ShardServerPool
+    from repro_torch.trace.monitor import ChimbukoMonitor
+
+    kill_at = dict(kills)
+    events = []  # per kill: {"t_kill", "t_up", "frames_down"}
+    state = {"n": 0}
+    real_ingest = ChimbukoMonitor.ingest
+    with ShardServerPool(TRAIN_SOCKET["shards"], kind="both", supervise=True,
+                         supervise_poll=0.05) as pool:
+
+        def watch(ev, target):
+            while pool.restarts < target:
+                time.sleep(0.002)
+            ev["t_up"] = time.perf_counter()
+
+        def ingest(self, frame, *args, **kw):
+            for ev in events:
+                if "t_up" not in ev:
+                    ev["frames_down"] += 1
+            out = real_ingest(self, frame, *args, **kw)
+            state["n"] += 1
+            if state["n"] in kill_at:
+                # each kill takes a live worker: the previous one is back first
+                deadline = time.perf_counter() + 60
+                while any("t_up" not in ev for ev in events):
+                    if time.perf_counter() > deadline:
+                        raise AssertionError("train_socket: a killed worker was never "
+                                             f"respawned (restarts {pool.restarts})")
+                    time.sleep(0.002)
+                ev = {"t_kill": time.perf_counter(), "frames_down": 0,
+                      "worker": kill_at[state["n"]], "after_frame": state["n"]}
+                kill_process(pool.procs[kill_at[state["n"]]])
+                events.append(ev)
+                threading.Thread(target=watch, args=(ev, len(events)), daemon=True).start()
+            return out
+
+        ChimbukoMonitor.ingest = ingest
+        t0 = time.perf_counter()
+        try:
+            mon = offline.replay(
+                store, registry=registry, num_funcs=TRAIN_MONITOR["num_funcs"],
+                prov_path=os.path.join(out_dir, "prov.jsonl"),
+                ps_transport="socket", provdb_transport="socket",
+                shard_endpoints=pool.endpoints, ps_wal_dir=os.path.join(out_dir, "wal"),
+                fault_policy=RetryPolicy(retries=8, base_delay=0.05),
+                run_info={"timestamp": 0.0}, **TRAIN_MONITOR["kw"])
+        finally:
+            ChimbukoMonitor.ingest = real_ingest
+        seconds = time.perf_counter() - t0
+        snap = mon.ps.snapshot().table.copy()
+        summary = mon.summary()
+        mon.close()
+        deadline = time.perf_counter() + 60
+        while any("t_up" not in ev for ev in events):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"train_socket: a killed worker was never respawned "
+                                     f"(restarts {pool.restarts}, kills {len(events)})")
+            time.sleep(0.01)
+        restarts = pool.restarts
+    files = {}
+    for path in shard_paths(os.path.join(out_dir, "prov.jsonl"), TRAIN_SOCKET["shards"]):
+        with open(path, "rb") as f:
+            files[os.path.basename(path)] = f.read()
+    return {"snapshot": snap, "summary": summary, "files": files, "restarts": restarts,
+            "seconds": seconds, "kills": [
+                {"after_frame": ev["after_frame"], "worker": ev["worker"],
+                 "respawn_s": ev["t_up"] - ev["t_kill"], "frames_down": ev["frames_down"]}
+                for ev in events]}
+
+
+def phase_train_socket(dev, path_e: dict) -> dict:
+    """Main path F: path E's training run with the monitor's PS and
+    provenance DB in two supervised shard worker processes (socket
+    transports, a PS write-ahead log), against a local-transport run of the
+    same configuration (F-a); the frames the socket run's monitor ingested
+    are archived and replayed offline with local transports (F-b) and, twice,
+    through a supervised worker pool, once with two seed-chosen SIGKILLs
+    (F-c)."""
+    import torch
+
+    from repro_torch.core import offline
+    from repro_torch.core.provenance import static_provenance
+    from repro_torch.fault.chaos import ChaosStream
+    from repro_torch.launch import train as TR
+    from repro_torch.trace.stream import FrameStore
+
+    opts = train_opts()
+    tag = f"train_socket[{TRAIN['arch']}]"
+    steps, B, S = TRAIN_SOCKET["steps"], TRAIN["global_batch"], TRAIN["seq"]
+    straggler = TRAIN_SOCKET["inject_straggler_at"]
+    common = dict(arch=TRAIN["arch"], smoke=False, steps=steps, global_batch=B, seq=S,
+                  seed=0, opts=opts, log_every=steps, export_trace=True,
+                  inject_straggler_at=straggler, provdb_shards=TRAIN_SOCKET["shards"],
+                  device=dev)
+    gc.collect()  # path E's tensors are gone: free their cache before path F
+    torch.cuda.empty_cache()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # The local-transport run first: it is F-a's reference, and it warms
+        # the allocator and cuBLAS, so the socket run's first step is not an
+        # outlier in the statistics its straggler is judged against.
+        for name, kw in (("local", {}), ("socket", dict(
+                ps_transport="socket", provdb_transport="socket",
+                shard_endpoints=f"spawn:{TRAIN_SOCKET['shards']}", supervise=True,
+                ps_wal=os.path.join(tmp, "wal")))):
+            record, spawn_s, seen = [], [], {}
+            store = FrameStore(os.path.join(tmp, f"frames_{name}"))
+            real = _timed_train_steps(TR, record)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            mon_dir = os.path.join(tmp, f"mon_{name}")
+            zero_counts()
+            try:
+                with archived_monitor(store if kw else None, seen), timed_spawn(spawn_s):
+                    out = TR.train(monitor_dir=mon_dir, **common, **kw)
+            finally:
+                TR.build_train_step = real
+            torch.cuda.synchronize()
+            counts = read_counts()
+            runs[name] = dict(out=out, record=record, counts=counts, spawn_s=spawn_s,
+                              seen=seen, store=store, dir=mon_dir,
+                              files=sorted(os.listdir(mon_dir)),
+                              peak=torch.cuda.max_memory_allocated(dev))
+            del out
+            gc.collect()
+        loc, sock = runs["local"], runs["socket"]
+        hist, mon = sock["out"]["history"], sock["out"]["monitor"]
+
+        # (F-a) the transports do not move the workload
+        losses = [h["loss"] for h in hist]
+        ref = [h["loss"] for h in loc["out"]["history"]]
+        if len(losses) != steps or len(sock["record"]) != steps:
+            raise AssertionError(f"{tag}: {len(losses)} steps, {len(sock['record'])} timed")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{tag}: non-finite loss: {losses}")
+        off = [i for i, (a, b) in enumerate(zip(losses, ref))
+               if not abs(a - b) <= TRAIN_SOCKET["loss_rtol"] * abs(b)]
+        if off:
+            raise AssertionError(f"{tag}: losses at steps {off} differ from the local run "
+                                 f"beyond rtol {TRAIN_SOCKET['loss_rtol']}: {losses} vs {ref}")
+        if (mon["ps_transport"], mon["provdb_transport"]) != ("socket", "socket"):
+            raise AssertionError(f"{tag}: summary shows ps_transport {mon['ps_transport']}, "
+                                 f"provdb_transport {mon['provdb_transport']}")
+        if mon["anomalies"] < 1 or mon["frames"] != steps:
+            raise AssertionError(f"{tag}: {mon['frames']} frames, {mon['anomalies']} "
+                                 f"anomalies (expected {steps} frames and at least one "
+                                 f"anomaly: the straggler at step {straggler})")
+        if any(sock["counts"].values()) or any(loc["counts"].values()):
+            raise AssertionError(f"{tag}: port kernels launched: {sock['counts']}, "
+                                 f"{loc['counts']}")
+        wal = sorted(os.listdir(os.path.join(tmp, "wal")))
+        if wal != [f"ps_shard{s}.wal" for s in range(TRAIN_SOCKET["shards"])]:
+            raise AssertionError(f"{tag}: the PS write-ahead log holds {wal}")
+        skip = {0, straggler}
+        host_s, event_s = _step_means(hist, sock["record"], skip)
+        host_l, event_l = _step_means(loc["out"]["history"], loc["record"], skip)
+        for i in range(steps):
+            log(f"{tag}: step {i} loss {losses[i]:.4f} (local {ref[i]:.4f}) host "
+                f"{hist[i]['time_s'] * 1e3:.1f} ms, CUDA events "
+                f"{sock['record'][i][0].elapsed_time(sock['record'][i][1]):.1f} ms")
+        log(f"{tag}: {steps} steps, straggler injected at step {straggler}; steps other "
+            f"than 0 and {straggler}: socket host {host_s:.1f} ms, CUDA events {event_s:.1f} "
+            f"ms per step, {B * S / (host_s / 1e3):.0f} tokens/s; local host {host_l:.1f} ms, "
+            f"CUDA events {event_l:.1f} ms, {B * S / (host_l / 1e3):.0f} tokens/s; path E "
+            f"(steps 1-{TRAIN['steps'] - 1}) host {path_e['step_host_ms']:.1f} ms, CUDA "
+            f"events {path_e['step_ms']:.1f} ms, {path_e['tok_per_s']:.0f} tokens/s; peak "
+            f"memory socket {sock['peak'] / 1e9:.2f} GB, local {loc['peak'] / 1e9:.2f} GB, "
+            f"path E {path_e['peak_bytes'] / 1e9:.2f} GB")
+        ingest_ms = {n: 1e3 * float(np.mean(r["seen"]["ingest_s"][1:])) for n, r in runs.items()}
+        log(f"{tag}: monitor ingest per frame (host, outside the driver's step time; frames "
+            f"1-{steps - 1}): socket {ingest_ms['socket']:.2f} ms, local "
+            f"{ingest_ms['local']:.2f} ms; step and ingest together: socket "
+            f"{B * S / ((host_s + ingest_ms['socket']) / 1e3):.0f} tokens/s, local "
+            f"{B * S / ((host_l + ingest_ms['local']) / 1e3):.0f} tokens/s")
+        log(f"{tag}: losses equal the local run's within rtol {TRAIN_SOCKET['loss_rtol']}; "
+            f"{TRAIN_SOCKET['shards']} supervised workers spawned in {sock['spawn_s'][0]:.3f} s; "
+            f"summary ps_transport {mon['ps_transport']} provdb_transport "
+            f"{mon['provdb_transport']}, frames {mon['frames']} events {mon['events']} "
+            f"anomalies {mon['anomalies']} provenance_records {mon['provenance_records']} "
+            f"stragglers {mon['stragglers']} ps_shard_pushes {mon['ps_shard_pushes']} health "
+            f"{mon['health']}; local run anomalies {loc['out']['monitor']['anomalies']}; "
+            f"monitor dir {sock['files']}; WAL {wal}; port kernel launches "
+            f"{sock['counts']} (expected 0)")
+
+        # (F-b) offline equals online
+        store, seen = sock["store"], sock["seen"]
+        registry = seen["registry"]
+        n_frames = sum(len(store.steps(r)) for r in store.ranks())
+        if n_frames != steps:
+            raise AssertionError(f"{tag}: archived {n_frames} frames of {steps}")
+        t0 = time.perf_counter()
+        off_mon = offline.replay(store, registry=registry, num_funcs=TRAIN_MONITOR["num_funcs"],
+                                 ps_shards=TRAIN_SOCKET["shards"],
+                                 provdb_shards=TRAIN_SOCKET["shards"], **TRAIN_MONITOR["kw"])
+        replay_s = time.perf_counter() - t0
+        off_sum = off_mon.summary()
+        off_snap = off_mon.ps.snapshot().table
+        off_mon.close()
+        live = seen["snapshot"]
+        if (off_sum["events"], off_sum["anomalies"]) != (mon["events"], mon["anomalies"]):
+            raise AssertionError(f"{tag}: offline replay gives events {off_sum['events']} "
+                                 f"anomalies {off_sum['anomalies']}, live {mon['events']} "
+                                 f"{mon['anomalies']}")
+        if off_snap.shape != live.shape or not np.allclose(off_snap[:, :3], live[:, :3],
+                                                           rtol=1e-9, atol=0.0):
+            raise AssertionError(f"{tag}: offline PS snapshot differs from the live one "
+                                 f"beyond rtol 1e-9")
+        log(f"{tag}: (F-b) offline replay of the {n_frames} archived frames, local "
+            f"transports: events {off_sum['events']} anomalies {off_sum['anomalies']} as "
+            f"live; PS snapshot columns n, mean, M2 within rtol 1e-9 of the live one; "
+            f"{replay_s:.3f} s ({n_frames / replay_s:.1f} frames/s)")
+
+        # (F-c) kills are invisible in the results
+        static_provenance()  # settle lazy env effects before both headers
+        cs = ChaosStream(TRAIN_SOCKET["chaos_seed"])
+        half = n_frames // 2
+        kills = [(1 + cs.below(half - 1), cs.below(TRAIN_SOCKET["shards"])),
+                 (half + cs.below(half - 1), cs.below(TRAIN_SOCKET["shards"]))]
+        ref_dir, kill_dir = os.path.join(tmp, "ref"), os.path.join(tmp, "kill")
+        os.makedirs(ref_dir)
+        os.makedirs(kill_dir)
+        clean = replay_through_pool(store, registry, ref_dir)
+        faulted = replay_through_pool(store, registry, kill_dir, kills)
+    if faulted["restarts"] < 1:
+        raise AssertionError(f"{tag}: the supervisor never respawned a killed worker")
+    if faulted["snapshot"].tobytes() != clean["snapshot"].tobytes():
+        raise AssertionError(f"{tag}: the PS snapshot after the kills differs from the "
+                             f"no-fault replay's")
+    if set(faulted["files"]) != set(clean["files"]) or not clean["files"] or any(
+            faulted["files"][n] != clean["files"][n] for n in clean["files"]):
+        raise AssertionError(f"{tag}: provenance files differ after the kills: "
+                             f"{sorted(clean['files'])} vs {sorted(faulted['files'])}")
+    if not faulted["summary"]["anomalies"] == clean["summary"]["anomalies"] > 0:
+        raise AssertionError(f"{tag}: anomalies {faulted['summary']['anomalies']} after the "
+                             f"kills, {clean['summary']['anomalies']} without")
+    for k in faulted["kills"]:
+        log(f"{tag}: (F-c) SIGKILL of worker {k['worker']} after frame {k['after_frame']}: "
+            f"respawned in {k['respawn_s']:.3f} s, {k['frames_down']} frames ingested "
+            f"while it was down")
+    log(f"{tag}: (F-c) replay through 2 supervised workers with a WAL: no fault "
+        f"{clean['seconds']:.3f} s, two kills {faulted['seconds']:.3f} s "
+        f"({n_frames / faulted['seconds']:.1f} frames/s), restarts {faulted['restarts']}; PS "
+        f"snapshot bytes and {sorted(clean['files'])} byte-identical; anomalies "
+        f"{clean['summary']['anomalies']} in both")
+    return {"counts": sock["counts"], "losses": losses, "local_losses": ref,
+            "step_ms": event_s, "step_host_ms": host_s, "tok_per_s": B * S / (host_s / 1e3),
+            "local_step_ms": event_l, "local_step_host_ms": host_l,
+            "peak_bytes": sock["peak"], "spawn_s": sock["spawn_s"][0], "ingest_ms": ingest_ms,
+            "anomalies": mon["anomalies"], "replay_s": replay_s,
+            "chaos": {"clean_s": clean["seconds"], "faulted_s": faulted["seconds"],
+                      "restarts": faulted["restarts"], "kills": faulted["kills"]}}
+
+
 # --------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -1545,9 +1904,11 @@ def main() -> int:
                          bf16_smokes=("gemma-2b", "gemma2-2b"))
     served_ssm = phase_serve(dev, "falcon-mamba-7b", "mamba_scan")
     trained = phase_train(dev)
+    trained_socket = phase_train_socket(dev, trained)
 
     paths = {"trace": trace["counts"], "width": width["counts"], "serve": served["counts"],
-             "serve_ssm": served_ssm["counts"], "train": trained["counts"]}
+             "serve_ssm": served_ssm["counts"], "train": trained["counts"],
+             "train_socket": trained_socket["counts"]}
     needs = {"trace": "moments_and_labels", "width": "moments_and_labels",
              "serve": "flash_attention", "serve_ssm": "mamba_scan"}
     for path, name in needs.items():

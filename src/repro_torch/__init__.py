@@ -3,8 +3,15 @@
 The PyTorch counterpart of ``repro``, laid out like it so that each module
 has a twin of the same name:
 
-  core/       host trace model (events, stats, callstack, sim) and the
+  core/       host trace model (events, stats, callstack, sim), the
+              monitor's AD, PS, provenance and offline replay, and the
               device-side AD step with its collectives (torch_ad)
+  trace/, telemetry/, net/, fault/, export/, viz/, lint/
+              the monitor, its shard federation over sockets with crash
+              recovery and the trace export (host modules copied from
+              ``repro``: numpy and the standard library only)
+  launch/     the step builders, the serving and training drivers, and
+              the shard worker launcher (``shard_server``, torch-free)
   kernels/    the hand-written Hopper kernels, their plain PyTorch versions
               and the wrappers that dispatch between them
   convert     stats tables carried between the JAX package, the host

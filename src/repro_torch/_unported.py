@@ -1,9 +1,9 @@
 """The error for a part of the JAX package the port does not have yet.
 
 Options of the copied modules whose backing module is not ported (the
-socket transport, the write-ahead log, the trace export, the viz gateway,
-span federation) and model families outside the dense slice raise it when
-asked for, instead of importing ``repro`` or skipping the option quietly.
+viz gateway, meshes, the dry run) and model families outside the dense
+and Mamba slices raise it when asked for, instead of importing ``repro``
+or skipping the option quietly.
 """
 from __future__ import annotations
 

@@ -49,7 +49,6 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
-from .._unported import unported
 from ..telemetry import registry as telemetry
 from .ad import ADFrameResult
 from .events import FunctionRegistry
@@ -581,7 +580,9 @@ class FederatedProvenanceDB:
         if transport not in ("local", "socket"):
             raise ValueError(f"transport must be 'local' or 'socket', got {transport!r}")
         if transport == "socket":
-            raise unported("FederatedProvenanceDB(transport='socket') (repro.net)")
+            if not endpoints:
+                raise ValueError("transport='socket' requires endpoints")
+            num_shards = len(endpoints)
         if num_shards < 1:
             raise ValueError(f"num_shards must be >= 1, got {num_shards}")
         self.transport = transport
@@ -601,9 +602,22 @@ class FederatedProvenanceDB:
         ).labels(transport=transport)
         header = {"type": "run_info", **static_provenance(run_info)} if path else None
         owned = shard_paths(path, num_shards)
-        self.shards = [
-            ProvenanceShard(path=p, append=append, header=header) for p in owned
-        ]
+        if transport == "socket":
+            from repro_torch.net.shards import RemoteProvenanceShard  # lazy: no core→net dep
+
+            # fault_policy arms crash recovery on every stub: durable worker
+            # writes, reconnect + recover-reconfigure + seq-deduped replay
+            # on connection loss, degraded-mode spooling (repro_torch.fault).
+            self.shards = [
+                RemoteProvenanceShard(
+                    ep, path=p, append=append, header=header, policy=fault_policy
+                )
+                for ep, p in zip(endpoints, owned)
+            ]
+        else:
+            self.shards = [
+                ProvenanceShard(path=p, append=append, header=header) for p in owned
+            ]
         if append:
             # Resume is topology-agnostic: prior docs are gathered from the
             # whole path family (the owned shard files plus any base-path /

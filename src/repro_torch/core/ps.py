@@ -47,7 +47,6 @@ from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .._unported import unported
 from ..telemetry import registry as telemetry
 from .stats import (
     N,
@@ -187,7 +186,47 @@ class PSShard:
         self.wal = wal
         self._conf_funcs = num_funcs  # global F at configure time (WAL CONF)
         if wal is not None:
-            raise unported("PSShard(wal=...) (repro.fault.wal)")
+            self._wal_open(num_funcs)
+
+    # ------------------------------------------------------------ durability
+    def _wal_open(self, num_funcs: int) -> None:  # lint: ignore[lockset-mixed] — runs inside __init__ before the shard is published to any other thread
+        """Replay an existing log (bit-exact restore) or start a fresh one."""
+        from repro_torch.fault import wal as _w  # lazy: core must not need fault
+
+        records, resumed = self.wal.load()
+        if not resumed:
+            self.wal.append_conf(self.shard_id, self.num_shards, num_funcs)
+            return
+        for rtype, payload in records:
+            if rtype == _w.CONF:
+                sid, S, F = _w.decode_conf(payload)
+                if (sid, S) != (self.shard_id, self.num_shards):
+                    raise _w.WalCorrupt(
+                        f"WAL {self.wal.path} belongs to shard {sid}/{S}, "
+                        f"not {self.shard_id}/{self.num_shards}"
+                    )
+                self.stats = StatsTable(shard_rows(F, self.shard_id, self.num_shards))
+                self._dirty = np.zeros(self.stats.num_funcs, bool)
+                self._conf_funcs = F
+            elif rtype == _w.SNAP:
+                table, n_pushes, last_seq = _w.decode_snap(payload)
+                self.stats = StatsTable(table.shape[0], table.copy())
+                self._dirty = np.zeros(self.stats.num_funcs, bool)
+                self.n_pushes = n_pushes
+                self.last_push_seq = last_seq
+            elif rtype == _w.ROWS:
+                seq, idx, rows, rows_total = _w.decode_rows(payload)
+                self._apply_rows_locked(idx, rows, rows_total)
+                if seq >= 0:
+                    self.last_push_seq = seq
+            elif rtype == _w.PUSH:
+                self._apply_push_locked(_w.decode_push(payload))
+            elif rtype == _w.GROW:
+                self._grow_locked(_w.decode_grow(payload))
+        # The front-end's incremental refresh state died with the old
+        # process: mark every live row dirty so the next delta peek re-ships
+        # them all — over-inclusive (same values rewritten) but exact.
+        self._dirty[:] = self.stats.table[:, N] > 0
 
     def _grow_locked(self, num_rows: int) -> None:  # lint: ignore[lockset-mixed] — caller holds self.lock (grow/push* take it before dispatching here)
         self.stats.grow(num_rows)
@@ -360,15 +399,52 @@ class FederatedPS(AnomalyFeed):
         if transport not in ("local", "socket"):
             raise ValueError(f"transport must be 'local' or 'socket', got {transport!r}")
         if transport == "socket":
-            raise unported("FederatedPS(transport='socket') (repro.net)")
-        if wal_dir is not None:
-            raise unported("FederatedPS(wal_dir=...) (repro.fault.wal)")
+            if not endpoints:
+                raise ValueError("transport='socket' requires endpoints")
+            from repro_torch.net.shards import RemotePSShard  # lazy: core must not need net
+
+            num_shards = len(endpoints)
+            # wal_dir makes the federation crash-tolerant: each worker logs
+            # its applied deltas to ``wal_dir/ps_shard<k>.wal`` (write-ahead,
+            # docs/fault.md) and a killed+respawned worker replays to a
+            # bit-exact table; the stubs get a recovery policy so pushes in
+            # flight across the kill are replayed (seq-dedup'd) instead of
+            # surfacing ConnectionLost to the monitor.
+            if wal_dir is not None and fault_policy is None:
+                from repro_torch.fault.policy import DEFAULT_POLICY
+
+                fault_policy = DEFAULT_POLICY
+            if fault_policy is not None:
+                from repro_torch.net.framing import ConnectionLost
+
+                # Exceptions the aggregate refresh absorbs (stale-but-alive
+                # degraded mode) instead of surfacing to the monitor.
+                self._conn_lost = (ConnectionLost,)
+            self.shards = [
+                RemotePSShard(
+                    ep, s, num_shards, num_funcs,
+                    wal_dir=wal_dir, policy=fault_policy,
+                )
+                for s, ep in enumerate(endpoints)
+            ]
         if num_shards < 1:
             raise ValueError(f"num_shards must be >= 1, got {num_shards}")
         self.transport = transport
         self.num_shards = num_shards
         self._num_funcs = num_funcs
-        self.shards = [PSShard(s, num_shards, num_funcs) for s in range(num_shards)]
+        if transport == "local":
+            if wal_dir is not None:
+                from repro_torch.fault.wal import PSWal, wal_path
+
+                self.shards = [
+                    PSShard(s, num_shards, num_funcs,
+                            wal=PSWal(wal_path(wal_dir, s), reset=True))
+                    for s in range(num_shards)
+                ]
+            else:
+                self.shards = [
+                    PSShard(s, num_shards, num_funcs) for s in range(num_shards)
+                ]
         self._aggregate_every = max(int(aggregate_every), 1)
         self._size_lock = threading.Lock()  # guards _num_funcs growth
         self._count_lock = threading.Lock()  # guards n_updates / refresh decision

@@ -32,9 +32,12 @@ import os
 import sys
 from typing import Optional, Sequence
 
-from .._unported import unported
 from .chrome_trace import validate_trace
-from .provenance_export import load_provenance_docs, render_provenance_trace
+from .provenance_export import (
+    load_provenance_docs,
+    query_live_endpoints,
+    render_provenance_trace,
+)
 from .record_stream import export_stream
 
 
@@ -92,7 +95,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         }
         name = "prov_trace.json" + (".gz" if args.gzip else "")
         if args.endpoints:
-            raise unported("export --endpoints (repro.launch.shard_server)")
+            from repro_torch.launch.shard_server import parse_endpoints
+
+            docs = query_live_endpoints(parse_endpoints(args.endpoints), **query)
+            default_out = name
         elif args.source:
             docs = load_provenance_docs(args.source, **query)
             base = args.source if os.path.isdir(args.source) else os.path.dirname(args.source)

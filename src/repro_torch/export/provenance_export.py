@@ -25,7 +25,6 @@ from typing import Any, Dict, IO, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch._unported import unported
 from repro_torch.core.events import EXEC_RECORD_DTYPE
 from repro_torch.core.provenance import _read_docs, match_doc
 
@@ -72,11 +71,33 @@ def query_live_endpoints(endpoints: Sequence[Tuple[str, int]],
                          **query: Any) -> List[Dict[str, Any]]:
     """Federated provenance query against *running* shard workers.
 
-    In the JAX package it talks ``prov.query`` over
-    ``repro.net.client.RPCClient``; the port raises until ``net/`` is
-    ported (ROADMAP.md queue 1, item 2b).
+    Talks ``prov.query`` directly over :class:`repro_torch.net.client.RPCClient`
+    — deliberately NOT through ``RemoteProvenanceShard``, whose constructor
+    issues ``prov.configure`` and would reset the live job's shard state.
+    Results heap-merge by global ``seq`` exactly like the in-job federation.
     """
-    raise unported("query_live_endpoints (repro.net.client)")
+    from repro_torch.net.client import RPCClient  # lazy: offline export needs no net
+
+    env = {k: query.get(k) for k in
+           ("rank", "fid", "step", "t0", "t1", "func", "severity", "min_severity")}
+    hits: List[Tuple[int, Dict[str, Any]]] = []
+    clients = []
+    try:
+        # Fan out like the in-job federation: pipeline one query per shard,
+        # then collect — S overlapped round-trips, not S serialized ones.
+        futs = []
+        for ep in endpoints:
+            client = RPCClient(tuple(ep))
+            clients.append(client)
+            futs.append((client, client.call_async("prov.query", env)))
+        for client, fut in futs:
+            out, _ = client.wait(fut)
+            hits.extend((seq, doc) for seq, doc in out["hits"])
+    finally:
+        for client in clients:
+            client.close()
+    hits.sort(key=lambda sd: sd[0])
+    return [doc for _, doc in hits]
 
 
 def _doc_records(doc: Dict[str, Any], pad_us: int) -> Tuple[np.ndarray, int, Dict[int, str], int]:

@@ -20,6 +20,9 @@ Usage (on a CUDA card; ``--device cpu`` runs on the CPU):
   python -m repro_torch.launch.train --arch gemma-2b --smoke --steps 60 \\
       --global-batch 8 --seq 64 --ckpt-dir /tmp/ckpt --monitor-dir /tmp/mon
   python -m repro_torch.launch.train --full --steps 6 --global-batch 4 --seq 1024
+  # the monitor's PS and provenance in two supervised shard worker processes:
+  python -m repro_torch.launch.train --ps-transport socket --provdb-transport socket \\
+      --provdb-shards 2 --shard-endpoints spawn:2 --supervise --ps-wal /tmp/wal
 """
 from __future__ import annotations
 
@@ -42,17 +45,6 @@ from ..trace.monitor import ChimbukoMonitor
 from ..trace.tracer import Tracer
 from ..viz.server import VizServer
 from .steps import StepOptions, build_train_step, make_shard_ctx, make_train_state
-
-
-def _refuse_unported(ps_transport, provdb_transport, shard_endpoints, supervise, ps_wal,
-                     viz_port) -> None:
-    if "socket" in (ps_transport, provdb_transport) or shard_endpoints or supervise:
-        raise unported("socket transports, --shard-endpoints and --supervise "
-                       "(repro.net, repro.launch.shard_server)", "2b")
-    if ps_wal is not None:
-        raise unported("--ps-wal (repro.fault.wal)", "2a")
-    if viz_port is not None:
-        raise unported("--viz-port (repro.viz.gateway)", "2d")
 
 
 def train(
@@ -81,11 +73,16 @@ def train(
     device=None,
 ) -> Dict:
     """The JAX driver's ``train``; ``device=None`` is the port's default
-    device (``cuda:0``; raises without CUDA)."""
-    _refuse_unported(ps_transport, provdb_transport, shard_endpoints, supervise, ps_wal,
-                     viz_port)
+    device (``cuda:0``; raises without CUDA).  Shard workers are host
+    processes and never touch the card."""
+    if viz_port is not None:
+        raise unported("--viz-port (repro.viz.gateway)", "2d")
     device = resolve(device)
+    # Arm distributed request tracing before anything spawns: shard worker
+    # processes read REPRO_SPANS at import, so the env var must be set
+    # before the pool forks for shard-side spans to record.
     if trace_spans:
+        os.environ["REPRO_SPANS"] = "1"
         _spans.set_enabled(True)
     cfg = configs.smoke(arch) if smoke else configs.get_config(arch)
     ctx = make_shard_ctx(cfg, None, global_batch, opts)
@@ -101,77 +98,101 @@ def train(
             start_step, state = restored
             print(f"[train] resumed from checkpoint at step {start_step}")
 
+    # Socket transports host the PS / provenance shards in separate worker
+    # processes (repro_torch.launch.shard_server): pass "host:port,..." of
+    # running workers, or "spawn:N" to spawn a local pool for this run's
+    # lifetime.
+    endpoints, pool = (None, None)
+    if ps_transport == "socket" or provdb_transport == "socket":
+        from .shard_server import resolve_endpoints
+
+        # --supervise only governs pools this run spawns; externally-run
+        # workers bring their own supervisor (shard_server --supervise).
+        endpoints, pool = resolve_endpoints(shard_endpoints, supervise=supervise)
+        if endpoints is None:
+            raise ValueError(
+                "socket transport needs --shard-endpoints (host:port,... or spawn:N)"
+            )
+
     history = []
-    # On a checkpoint resume the provenance store appends instead of
-    # truncating, so the auto-restart path keeps every pre-failure anomaly
-    # record.
-    if monitor_dir:
-        os.makedirs(monitor_dir, exist_ok=True)
-    # With a monitor dir the reduced record stream persists alongside the
-    # provenance JSONL, so `python -m repro_torch.export <monitor_dir>` can
-    # produce the Perfetto trace offline; --export-trace additionally
-    # streams trace.json continuously *during* the run.
-    monitor = ChimbukoMonitor(
-        num_funcs=32,
-        prov_path=os.path.join(monitor_dir, "provenance.jsonl") if monitor_dir else None,
-        min_samples=8, alpha=6.0, straggler_alpha=3.0, straggler_min_steps=8,
-        run_info={"arch": cfg.name, "steps": steps, "global_batch": global_batch,
-                  "torch_version": torch.__version__, "cuda_version": torch.version.cuda,
-                  "device": str(device),
-                  "device_name": (torch.cuda.get_device_name(device)
-                                  if device.type == "cuda" else "cpu")},
-        provdb_shards=provdb_shards,
-        prov_append=start_step > 0,
-        trace_spans=trace_spans or None,
-        stream_path=os.path.join(monitor_dir, "stream.jsonl") if monitor_dir else None,
-        export_trace=(
-            os.path.join(monitor_dir, "trace.json")
-            if export_trace and monitor_dir else None
-        ),
-    )
-    monitor.on_straggler(
-        lambda ev: print(f"[monitor] straggler: step={ev.step} z={ev.zscore:.1f}")
-    )
-    tracer = Tracer(monitor.registry, rank=0)
+    try:
+        # On a checkpoint resume the provenance store appends instead of
+        # truncating, so the auto-restart path keeps every pre-failure anomaly
+        # record.
+        if monitor_dir:
+            os.makedirs(monitor_dir, exist_ok=True)
+        # With a monitor dir the reduced record stream persists alongside the
+        # provenance JSONL, so `python -m repro_torch.export <monitor_dir>` can
+        # produce the Perfetto trace offline; --export-trace additionally
+        # streams trace.json continuously *during* the run.
+        monitor = ChimbukoMonitor(
+            num_funcs=32,
+            prov_path=os.path.join(monitor_dir, "provenance.jsonl") if monitor_dir else None,
+            min_samples=8, alpha=6.0, straggler_alpha=3.0, straggler_min_steps=8,
+            run_info={"arch": cfg.name, "steps": steps, "global_batch": global_batch,
+                      "torch_version": torch.__version__, "cuda_version": torch.version.cuda,
+                      "device": str(device),
+                      "device_name": (torch.cuda.get_device_name(device)
+                                      if device.type == "cuda" else "cpu")},
+            provdb_shards=provdb_shards,
+            prov_append=start_step > 0,
+            ps_transport=ps_transport,
+            provdb_transport=provdb_transport,
+            shard_endpoints=endpoints,
+            ps_wal_dir=ps_wal,
+            trace_spans=trace_spans or None,
+            stream_path=os.path.join(monitor_dir, "stream.jsonl") if monitor_dir else None,
+            export_trace=(
+                os.path.join(monitor_dir, "trace.json")
+                if export_trace and monitor_dir else None
+            ),
+        )
+        monitor.on_straggler(
+            lambda ev: print(f"[monitor] straggler: step={ev.step} z={ev.zscore:.1f}")
+        )
+        tracer = Tracer(monitor.registry, rank=0)
 
-    for step in range(start_step, steps):
-        t0 = time.perf_counter()
-        with tracer.span("train/step"):
-            with tracer.span("train/data"):
-                batch = to_device(stream.batch_at(step), device)
-            with tracer.span("train/fwd_bwd_update"):
-                state, metrics = step_fn(state, batch)
-                loss = float(metrics["loss"])
-            if inject_straggler_at is not None and step == inject_straggler_at:
-                with tracer.span("train/injected_delay"):
-                    time.sleep(0.5)
-            if mgr is not None:
-                with tracer.span("train/checkpoint", filterable=False):
-                    mgr.maybe_save(step + 1, state)
-        dt = time.perf_counter() - t0
-        monitor.ingest(tracer.drain(step))
-        if step - start_step >= 2:  # first-step outliers would poison sigma
-            monitor.record_step_times(step, {0: dt})
-        history.append({"step": step, "loss": loss, "time_s": dt})
-        if step % log_every == 0:
-            print(f"[train] step {step:5d} loss {loss:.4f} {dt*1e3:.0f} ms")
-        if fail_at is not None and step + 1 == fail_at:
-            if mgr is not None:
-                mgr.wait()  # fail-stop after in-flight async save settles,
-                # so the injected failure is deterministic for resume tests
-            print(f"[train] simulated failure at step {step + 1}")
-            raise RuntimeError("injected node failure")
+        for step in range(start_step, steps):
+            t0 = time.perf_counter()
+            with tracer.span("train/step"):
+                with tracer.span("train/data"):
+                    batch = to_device(stream.batch_at(step), device)
+                with tracer.span("train/fwd_bwd_update"):
+                    state, metrics = step_fn(state, batch)
+                    loss = float(metrics["loss"])
+                if inject_straggler_at is not None and step == inject_straggler_at:
+                    with tracer.span("train/injected_delay"):
+                        time.sleep(0.5)
+                if mgr is not None:
+                    with tracer.span("train/checkpoint", filterable=False):
+                        mgr.maybe_save(step + 1, state)
+            dt = time.perf_counter() - t0
+            monitor.ingest(tracer.drain(step))
+            if step - start_step >= 2:  # first-step outliers would poison sigma
+                monitor.record_step_times(step, {0: dt})
+            history.append({"step": step, "loss": loss, "time_s": dt})
+            if step % log_every == 0:
+                print(f"[train] step {step:5d} loss {loss:.4f} {dt*1e3:.0f} ms")
+            if fail_at is not None and step + 1 == fail_at:
+                if mgr is not None:
+                    mgr.wait()  # fail-stop after in-flight async save settles,
+                    # so the injected failure is deterministic for resume tests
+                print(f"[train] simulated failure at step {step + 1}")
+                raise RuntimeError("injected node failure")
 
-    if mgr is not None:
-        mgr.maybe_save(steps, state, force=True)
-        mgr.wait()
-    summary = monitor.summary()
-    if monitor_dir:
-        os.makedirs(monitor_dir, exist_ok=True)
-        VizServer(monitor).dump(os.path.join(monitor_dir, "viz.json"))
-        with open(os.path.join(monitor_dir, "history.json"), "w") as f:
-            json.dump(history, f)
-    monitor.close()
+        if mgr is not None:
+            mgr.maybe_save(steps, state, force=True)
+            mgr.wait()
+        summary = monitor.summary()
+        if monitor_dir:
+            os.makedirs(monitor_dir, exist_ok=True)
+            VizServer(monitor).dump(os.path.join(monitor_dir, "viz.json"))
+            with open(os.path.join(monitor_dir, "history.json"), "w") as f:
+                json.dump(history, f)
+        monitor.close()
+    finally:
+        if pool is not None:
+            pool.stop()  # a spawn:N worker pool lives exactly one train() call
     return {"history": history, "monitor": summary,
             "final_loss": history[-1]["loss"] if history else None}
 
@@ -195,20 +216,24 @@ def main():
     ap.add_argument("--provdb-transport", choices=("local", "socket"), default="local")
     ap.add_argument(
         "--shard-endpoints", default=None,
-        help="shard_server workers (not ported yet: ROADMAP.md queue 1, item 2b)",
+        help="shard_server workers as host:port,... — or spawn:N to spawn a "
+        "local worker pool for this run (required with a socket transport)",
     )
     ap.add_argument(
         "--supervise", action="store_true",
-        help="respawn dead shard workers (not ported yet: item 2b)",
+        help="respawn dead shard workers (spawn:N pools only); pair with "
+        "--ps-wal so recovered PS shards replay to their pre-crash state",
     )
     ap.add_argument(
         "--ps-wal", default=None, metavar="DIR",
-        help="write-ahead-log directory for PS shards (not ported yet: item 2a)",
+        help="write-ahead-log directory for PS shards (socket transport): "
+        "arms crash recovery with bit-exact table replay (docs/fault.md)",
     )
     ap.add_argument(
         "--trace-spans", action="store_true",
-        help="distributed request tracing: per-process span flight recorders "
-        "and span trees in the trace export (this process's spans only)",
+        help="distributed request tracing: W3C-style trace context on every "
+        "RPC frame, per-process span flight recorders, and cross-process "
+        "span trees + flow arrows in the trace export",
     )
     ap.add_argument(
         "--export-trace", action="store_true",

@@ -1,3 +1,3 @@
-"""Tracing substrate: TAU-analogue tracer and the Chimbuko monitor (copies
-of ``repro.trace.tracer`` and ``repro.trace.monitor``)."""
-from . import tracer, monitor  # noqa: F401
+"""Tracing substrate: TAU-analogue tracer, SST-analogue streams, monitor
+(the port's copies of ``repro.trace``)."""
+from . import tracer, stream, monitor  # noqa: F401

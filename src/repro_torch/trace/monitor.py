@@ -151,8 +151,6 @@ class ChimbukoMonitor:
         # log applied deltas there, stubs get a retry/replay policy, and a
         # killed+respawned shard recovers to a bit-exact table while the
         # monitor keeps analyzing (degraded) through the outage.
-        if ps_wal_dir is not None:
-            raise unported("ChimbukoMonitor(ps_wal_dir=...) (repro.fault.wal)")
         if ps_transport == "socket":
             self.ps = FederatedPS(
                 num_funcs, aggregate_every=ps_aggregate_every,
@@ -415,21 +413,19 @@ class ChimbukoMonitor:
     # ----------------------------------------------------------- span fleet
     def _federate_spans(self, dump: bool, reason: str) -> List[str]:
         """Pull every process's flight recorder into the monitor-side
-        per-proc archive (``_span_views``); returns degraded-shard errors.
+        per-proc archive (``_span_views``); returns degraded-shard errors."""
+        from repro_torch.telemetry.federate import federated_spans
 
-        Without shard endpoints this is the local half of
-        ``repro.telemetry.federate.federated_spans``: the monitor's own
-        flight recorder.  Shard processes wait for ROADMAP.md queue 1, item 2b."""
-        if self.shard_endpoints:
-            raise unported("span federation (repro.telemetry.federate)")
-        ring = get_ring()
-        if dump:
-            ring.dump(reason)
-        dst = self._span_views.setdefault("monitor", {})
-        for span in ring.collect():
-            key = (span["trace"], span["span"])
-            dst[key] = prefer_recording(dst.get(key), span)
-        return []
+        procs, errors = federated_spans(
+            self.shard_endpoints, local_proc="monitor",
+            dump=dump, reason=reason,
+        )
+        for proc, view in procs.items():
+            dst = self._span_views.setdefault(proc, {})
+            for span in view["spans"]:
+                key = (span["trace"], span["span"])
+                dst[key] = prefer_recording(dst.get(key), span)
+        return errors
 
     def quiesce(self, dump: bool = True) -> dict:
         """Deterministic settle point: flush + drain every in-flight write,

@@ -177,10 +177,37 @@ def test_port_sources_import_no_jax_and_nothing_of_repro_at_any_depth():
     walked = {str(f.relative_to(REPO / "src")).replace("/", ".")[:-3] for f in files[:-1]}
     assert {"repro_torch.models.model", "repro_torch.kernels.flash_attention",
             "repro_torch.launch.serve", "repro_torch.trace.monitor",
-            "repro_torch.core.ps", "repro_torch.core.provenance"} <= walked
+            "repro_torch.core.ps", "repro_torch.core.provenance",
+            "repro_torch.trace.stream", "repro_torch.core.offline",
+            "repro_torch.fault.policy", "repro_torch.fault.wal", "repro_torch.fault.chaos",
+            "repro_torch.telemetry.exposition", "repro_torch.telemetry.buildinfo",
+            "repro_torch.telemetry.__main__", "repro_torch.telemetry.federate",
+            "repro_torch.lint.runtime", "repro_torch.net.framing", "repro_torch.net.client",
+            "repro_torch.net.server", "repro_torch.net.shards",
+            "repro_torch.launch.shard_server"} <= walked
     # the check sees nested imports: a function-level one is caught
     probe = REPO / "src" / "repro_torch" / "trace" / "monitor.py"
     assert "repro_torch.fault.health" in set(_imported_modules(probe))
+
+
+_WORKER_IMPORTS_SCRIPT = r"""
+import sys
+import repro_torch.launch.shard_server
+from repro_torch.net.shards import build_shard_table
+build_shard_table("both")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "jaxlib", "repro"))
+assert not bad, bad
+print("TORCH-FREE")
+"""
+
+
+def test_shard_worker_imports_neither_torch_nor_jax():
+    """A spawned shard worker re-imports ``repro_torch.launch.shard_server``
+    and builds its service table: that closure loads no torch (no CUDA
+    probe on a respawn) and no jax."""
+    r = subprocess.run([sys.executable, "-c", _WORKER_IMPORTS_SCRIPT], capture_output=True,
+                       text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+    assert "TORCH-FREE" in r.stdout, r.stdout + r.stderr
 
 
 # ------------------------------------------------------- distributed step

@@ -228,14 +228,36 @@ def test_monitored_run_writes_the_jax_drivers_outputs(tmp_path):
     assert info["cuda_version"] == torch.version.cuda and info["device_name"] == "cpu"
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(ps_transport="socket"), "item 2b"), (dict(shard_endpoints="spawn:2"), "item 2b"),
-    (dict(supervise=True), "item 2b"), (dict(ps_wal="wal"), "item 2a"),
-    (dict(viz_port=0), "item 2d"),
-])
+@pytest.mark.parametrize("kw,item", [(dict(viz_port=0), "item 2d")])
 def test_unported_driver_options_raise_naming_their_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         train(steps=1, **_KW, **kw)
+
+
+@pytest.mark.parametrize("kw,want", [
+    (dict(ps_transport="socket", shard_endpoints="spawn:2"), dict(ps_transport="socket")),
+    (dict(provdb_transport="socket", shard_endpoints="spawn:2"),
+     dict(provdb_transport="socket", provdb_shards=2)),
+    (dict(ps_transport="socket", shard_endpoints="spawn:1", supervise=True),
+     dict(ps_transport="socket", ps_shards=1)),
+    (dict(ps_transport="socket", shard_endpoints="spawn:2", ps_wal="wal"),
+     dict(ps_transport="socket", ps_shards=2)),
+])
+def test_driver_socket_and_wal_options_run(tmp_path, kw, want):
+    """The options that waited for items 2a and 2b (socket transports,
+    --shard-endpoints, --supervise, --ps-wal) run as in the JAX driver."""
+    if "ps_wal" in kw:
+        kw = {**kw, "ps_wal": str(tmp_path / kw["ps_wal"])}
+    out = train(steps=2, **_KW, **kw)
+    assert {k: out["monitor"][k] for k in want} == want
+    assert out["monitor"]["frames"] == 2 and out["monitor"]["health"]["ok"]
+    if "ps_wal" in kw:
+        assert sorted(os.listdir(kw["ps_wal"])) == ["ps_shard0.wal", "ps_shard1.wal"]
+
+
+def test_socket_transport_without_endpoints_raises_as_jax():
+    with pytest.raises(ValueError, match="needs --shard-endpoints"):
+        train(steps=1, ps_transport="socket", **_KW)
 
 
 _JAX_DRIVER_SCRIPT = r"""

@@ -179,9 +179,34 @@ def test_span_rendering_closes_into_a_valid_trace(tmp_path):
     assert any(e["ph"] == "X" and e.get("cat") == "span" for e in doc["traceEvents"])
 
 
-def test_live_queries_wait_for_the_socket_transport(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 2"):
-        t_prov.query_live_endpoints([("127.0.0.1", 1)], rank=0)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        t_cli.main(["--provenance", "--endpoints", "127.0.0.1:1"])
+def test_live_queries_wait_for_the_socket_transport(tmp_path, capsys):
+    """The live queries that waited for the socket transport (ROADMAP.md
+    queue 1, item 2b) now run over it: twin of tests/test_export.py:331 on
+    the port's shard workers, ``query_live_endpoints`` returns what the
+    JAX package's returns against the same workers, and ``export
+    --provenance --endpoints`` writes the JAX CLI's bytes."""
+    from repro.export.provenance_export import query_live_endpoints as j_query
+    from repro_torch.launch.shard_server import LocalShardHost, format_endpoints
+
+    td = str(tmp_path / "run")
+    os.makedirs(td)
+    with LocalShardHost(2, kind="prov") as host:
+        mon = _run(TMonitor, t_sim, td, provdb_transport="socket",
+                   shard_endpoints=host.endpoints)
+        mon.provdb.drain()
+        live = t_prov.query_live_endpoints(host.endpoints)
+        assert live == mon.provdb.query() and live
+        assert t_prov.query_live_endpoints(host.endpoints, min_severity=1) == \
+            mon.provdb.query(min_severity=1)
+        assert j_query(host.endpoints) == live
+        spec = format_endpoints(host.endpoints)
+        outs = []
+        for cli, name in ((t_cli, "port.json"), (j_cli, "jax.json")):
+            assert cli.main(["--provenance", "--endpoints", spec,
+                             "-o", str(tmp_path / name)]) == 0
+            outs.append((tmp_path / name).read_bytes())
+        mon.close()
+    capsys.readouterr()
+    assert outs[0] == outs[1]
+    assert live == t_prov.load_provenance_docs(td)
     assert np.dtype(empty_exec_records(0).dtype) == np.dtype(empty_exec_records(3).dtype)

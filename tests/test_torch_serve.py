@@ -6,6 +6,7 @@ weights (carried from JAX ``init_params``), and the port's copy of
 telemetry and health) against the original on identical trace frames.
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -84,10 +85,15 @@ def test_serve_matches_jax_with_carried_weights(arch, monkeypatch):
 @pytest.mark.parametrize("layout", [
     dict(ps_shards=2, ps_batch_frames=2),  # PS federation, batched pushes
     dict(provdb_shards=2),  # provenance federation
+    # both federations in each package's own shard servers, with a PS WAL
+    dict(ps_transport="socket", provdb_transport="socket", shard_endpoints=2, ps_wal_dir="wal"),
 ])
 def test_monitor_copy_matches_the_original_on_identical_frames(layout, tmp_path):
     """Same frames through both monitors: same summary, kept records,
     provenance documents and straggler verdicts."""
+    from repro.launch.shard_server import LocalShardHost as JHost
+    from repro_torch.launch.shard_server import LocalShardHost as THost
+
     def spec(sim):
         s = sim.nwchem_like(anomaly_rate=0.02, roots_per_frame=4)
         for fs in s.funcs.values():
@@ -97,10 +103,15 @@ def test_monitor_copy_matches_the_original_on_identical_frames(layout, tmp_path)
     gen = j_sim.WorkloadGenerator(spec(j_sim), n_ranks=3, seed=5)
     assert gen.registry.names == t_sim.WorkloadGenerator(spec(t_sim), n_ranks=3,
                                                          seed=5).registry.names
-    mons = []
-    for name, cls in (("jax", JMonitor), ("port", TMonitor)):
+    mons, hosts = [], []
+    for name, cls, Host in (("jax", JMonitor, JHost), ("port", TMonitor, THost)):
+        kw = dict(layout)
+        if "shard_endpoints" in kw:
+            hosts.append(Host(kw["shard_endpoints"], kind="both"))
+            kw.update(shard_endpoints=hosts[-1].endpoints,
+                      ps_wal_dir=str(tmp_path / f"{name}_{kw['ps_wal_dir']}"))
         mons.append(cls(num_funcs=len(gen.registry), min_samples=5,
-                        prov_path=str(tmp_path / f"{name}.jsonl"), **layout))
+                        prov_path=str(tmp_path / f"{name}.jsonl"), **kw))
     step_times = np.random.default_rng(1).lognormal(0, 0.1, (12, 3))
     step_times[11, 1] = 50.0  # one straggler
     for step in range(12):
@@ -122,26 +133,58 @@ def test_monitor_copy_matches_the_original_on_identical_frames(layout, tmp_path)
         assert mons[1].kept[key].tobytes() == mons[0].kept[key].tobytes()
     for m in mons:
         m.close()
+    for h in hosts:
+        h.stop()
     docs = [sorted(line for f in sorted(tmp_path.glob(f"{n}*.jsonl"))
                    for line in f.read_text().splitlines() if '"run_info"' not in line)
             for n in ("jax", "port")]
     assert docs[0] == docs[1] and len(docs[0]) == js["provenance_records"]
 
 
-@pytest.mark.parametrize("option", [
-    dict(viz_serve=0),
-    dict(ps_transport="socket", shard_endpoints=["127.0.0.1:1"]),
-    dict(provdb_transport="socket", shard_endpoints=["127.0.0.1:1"]),
-    dict(ps_wal_dir="wal"),
-])
+@pytest.mark.parametrize("option", [dict(viz_serve=0)])
 def test_unported_monitor_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 2"):
         TMonitor(num_funcs=4, **option)
 
 
+@pytest.mark.parametrize("option", [
+    dict(ps_transport="socket"),
+    dict(provdb_transport="socket"),
+    dict(ps_transport="socket", ps_wal_dir="wal"),
+])
+def test_monitor_socket_and_wal_options_run(option, tmp_path):
+    """The monitor options that waited for items 2a and 2b run against the
+    port's shard servers: the summary names the transport, and a PS WAL
+    directory gets one log per shard."""
+    from repro_torch.launch.shard_server import LocalShardHost
+
+    option = dict(option)
+    if "ps_wal_dir" in option:
+        option["ps_wal_dir"] = str(tmp_path / option["ps_wal_dir"])
+    gen = t_sim.WorkloadGenerator(t_sim.nwchem_like(roots_per_frame=4), n_ranks=2, seed=2)
+    with LocalShardHost(2, kind="both") as host:
+        mon = TMonitor(num_funcs=len(gen.registry), registry=gen.registry,
+                       shard_endpoints=host.endpoints, **option)
+        for step in range(3):
+            for rank in range(2):
+                mon.ingest(gen.frame(rank, step)[0])
+        summary = mon.summary()
+        mon.close()
+    for key in ("ps_transport", "provdb_transport"):
+        assert summary.get(key, "local") == option.get(key, "local")
+    assert summary["frames"] == 6 and summary["health"]["ok"]
+    if "ps_wal_dir" in option:
+        assert sorted(os.listdir(option["ps_wal_dir"])) == ["ps_shard0.wal", "ps_shard1.wal"]
+
+
 def test_span_federation_raises_and_the_run_info_names_torch(tmp_path):
+    """Span federation raised here until item 2b; it now reads the shard
+    workers' flight recorders, and a shard that cannot be reached is
+    reported as an error of ``quiesce`` (as in the JAX package) instead of
+    raising.  A PS WAL directory is taken, and the run info names torch."""
     from repro_torch.core.provenance import static_provenance
     from repro_torch.core.ps import FederatedPS
+    from repro_torch.launch.shard_server import LocalShardHost
 
     mon = TMonitor(num_funcs=4, trace_spans=True)  # no shard: the local recorder only
     try:
@@ -149,15 +192,29 @@ def test_span_federation_raises_and_the_run_info_names_torch(tmp_path):
     finally:
         tspans.set_enabled(False)
         mon.close()
+    gen = t_sim.WorkloadGenerator(t_sim.nwchem_like(roots_per_frame=4), n_ranks=1, seed=2)
+    with LocalShardHost(1, kind="both") as host:
+        mon = TMonitor(num_funcs=len(gen.registry), registry=gen.registry, trace_spans=True,
+                       ps_transport="socket", provdb_transport="socket",
+                       shard_endpoints=host.endpoints)
+        try:
+            for step in range(2):
+                mon.ingest(gen.frame(0, step)[0])
+            assert mon.quiesce() == {"errors": []}
+            assert "shard0" in mon._span_views and "monitor" in mon._span_views
+        finally:
+            tspans.set_enabled(False)
+            mon.close()
     mon = TMonitor(num_funcs=4, trace_spans=True, shard_endpoints=[("127.0.0.1", 1)])
     try:
-        with pytest.raises(NotImplementedError, match="span federation"):
-            mon.quiesce()
+        errors = mon.quiesce()["errors"]
+        assert len(errors) == 1 and "127.0.0.1:1" in errors[0]
     finally:
         tspans.set_enabled(False)
         mon.close()
-    with pytest.raises(NotImplementedError, match="repro.fault.wal"):
-        FederatedPS(4, wal_dir=str(tmp_path))
+    ps = FederatedPS(4, wal_dir=str(tmp_path))
+    assert [type(s.wal).__name__ for s in ps.shards] == ["PSWal"] * 4
+    ps.close()
     info = static_provenance()
     assert info["torch_version"] == torch.__version__ and "jax_version" not in info
     assert info["device_name"] == (torch.cuda.get_device_name(0)

@@ -390,3 +390,55 @@ def test_stream_batches_feed_the_step_as_jax_feeds_it():
     got = TD.to_device(raw, "cpu")
     assert {k: v.dtype for k, v in got.items()} == {"tokens": torch.int32, "labels": torch.int32}
     assert list(got) == list(raw) and all(np.array_equal(got[k].numpy(), raw[k]) for k in raw)
+
+
+# ------------------------------------------- the driver over shard workers
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports no CUDA code at import time)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_socket_supervised_wal_training_matches_local(tmp_path):
+    """The smoke gemma-2b trains with the monitor's PS and provenance DB in
+    two supervised shard worker processes and a PS write-ahead log
+    (chip_smoke.py's path F at the smoke size): the summary shows socket
+    transports, the losses equal a local run's, the WAL and the sharded
+    provenance files are written, and the frames the run's monitor ingested
+    (archived through chip_smoke.py's hook) replay offline with local
+    transports to the live events, anomalies and PS table."""
+    from repro_torch.core import offline
+    from repro_torch.launch.train import train
+    from repro_torch.trace.stream import FrameStore
+
+    cs = _chip_smoke()
+    kw = dict(arch="gemma-2b", steps=8, global_batch=4, seq=32, log_every=100, device="cpu",
+              inject_straggler_at=5, provdb_shards=2)
+    local = train(**kw)
+    store, seen = FrameStore(str(tmp_path / "frames")), {}
+    with cs.archived_monitor(store, seen):
+        got = train(ps_transport="socket", provdb_transport="socket", shard_endpoints="spawn:2",
+                    supervise=True, ps_wal=str(tmp_path / "wal"),
+                    monitor_dir=str(tmp_path / "mon"), **kw)
+    mon = got["monitor"]
+    assert (mon["ps_transport"], mon["provdb_transport"]) == ("socket", "socket")
+    assert mon["ps_shards"] == mon["provdb_shards"] == 2 and mon["frames"] == 8
+    assert mon["events"] == 8 * 6 + 2  # 3 spans a step, and the injected delay's
+    np.testing.assert_allclose([h["loss"] for h in got["history"]],
+                               [h["loss"] for h in local["history"]], rtol=1e-5)
+    assert sorted(os.listdir(tmp_path / "wal")) == ["ps_shard0.wal", "ps_shard1.wal"]
+    assert {"provenance.shard0.jsonl", "provenance.shard1.jsonl"} <= set(
+        os.listdir(tmp_path / "mon"))
+    assert store.ranks() == [0] and store.steps(0) == list(range(8))
+    replayed = offline.replay(store, registry=seen["registry"],
+                              num_funcs=cs.TRAIN_MONITOR["num_funcs"], ps_shards=2,
+                              provdb_shards=2, **cs.TRAIN_MONITOR["kw"])
+    summary = replayed.summary()
+    assert (summary["events"], summary["anomalies"]) == (mon["events"], mon["anomalies"])
+    np.testing.assert_allclose(replayed.ps.snapshot().table[:, :3], seen["snapshot"][:, :3],
+                               rtol=1e-9)
+    replayed.close()
