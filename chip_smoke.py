@@ -27,7 +27,9 @@ non-zero):
            the card: the repo's 8 test shapes, the kv_len case, ragged shapes,
            100 random shapes, the full-width gemma-2b prefill shape (B 4,
            S 1024, H 8, KV 1, hd 256, causal, bf16, and again in float32) and
-           the attention shapes of gemma2-2b and h2o-danube3-4b at one wave;
+           the attention shapes of gemma2-2b, h2o-danube3-4b and
+           granite-moe-1b-a400m (hd 64, GQA 16:8; its determinism and timing
+           beside scaled_dot_product_attention too) at one wave;
            bf16 goes through the tensor-core instances (wgmma, TMA), float32
            through the CUDA-core one.  Each instance's SASS instruction counts
            (HGMMA and UTMALDG required in bf16) and ptxas line (no spills), a
@@ -49,6 +51,16 @@ non-zero):
   serve_ssm  main path D: the same traffic and checks on falcon-mamba-7b at
            its published width (64 Mamba layers, no attention), whose every
            prefill layer runs the scan kernel;
+  serve_moe  main path G: the same traffic on granite-moe-1b-a400m at its
+           published width (24 layers, 32 experts, top-8; flash at hd 64)
+           under a monitor with the live viz gateway (viz_serve=0), a
+           WebSocket viewer and an HTTP poller attached while it runs; then
+           the viewer's frame count = the gateway's broadcasts = the frames
+           ingested, every view equal to VizServer's, /trace its bytes, 304
+           on a repeat GET, the port closed after monitor.close(), the cost
+           of one broadcast, the smoke models card vs CPU (float32, bf16),
+           moe_block bitwise repeatable at the prefill wave's shape, and the
+           prefill's device time by kernel class (MoE dispatch vs GEMMs);
   refusals the card-only limits (moments' F, flash's TMA alignment) raise
            for CUDA tensors without a launch; the CPU takes the same inputs;
   train    main path E: repro_torch.launch.train.train on gemma-2b at its
@@ -139,6 +151,7 @@ FLASH_MODELS = {  # the other bf16 configs' attention at one wave (configs/*.py)
     "gemma2-2b": (4, 1024, 1024, 8, 4, 256, True, 4096, 50.0, "bfloat16"),
     "h2o-danube3-4b": (4, 1024, 1024, 32, 8, 120, True, 4096, 0.0, "bfloat16"),
 }
+FLASH_MOE = (4, 1024, 1024, 16, 8, 64, True, 0, 0.0, "bfloat16")  # granite-moe prefill wave
 FLASH_SASS = ("HGMMA", "UTMALDG", "SYNCS", "MUFU", "FFMA", "FMUL", "LDS", "STS", "BAR")
 FLASH_SWEEP = 100  # random shapes: GQA groups, head dims, ragged lengths, masks, dtypes
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:88
@@ -151,6 +164,19 @@ SCAN_FULL = (4, 1024, 8192, 16)  # falcon-mamba-7b prefill wave: B, S, d_inner, 
 SCAN_TOL = 1e-5  # tests/test_kernels.py:133-134
 SCAN_OPS_PER_STATE = 4  # h = a*h + b (2), h*C and its share of the sum over st (2)
 SERVE = dict(n_requests=8, batch=4, prompt_len=1024, max_new=32)
+SERVE_MOE = "granite-moe-1b-a400m"  # path G: the one MoE config whose float32 masters fit
+# Path G's live viewers: the HTTP views polled while serve runs, and the
+# per-frame cost of a broadcast timed over this many publishes afterwards.
+VIZ_POLLED = ("/", "/dashboard", "/series?rank=0", "/metrics")
+VIZ_POLL_S = 0.1
+VIZ_PUBLISHES = 200
+# Kernel-name classes of a MoE prefill's device time (torch.profiler names
+# on the H100: cuBLAS GEMMs are nvjet/xmma/cutlass kernels).
+DEVICE_CLASSES = (("flash", ("flash_fwd",)),
+                  ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+                  ("sort", ("sort",)),
+                  ("index", ("index", "gather", "scatter")),
+                  ("scan", ("scan", "cum")))
 TRAIN = dict(arch="gemma-2b", steps=6, global_batch=4, seq=1024)  # path E
 # path E's StepOptions: train.py's default (remat "block", ce_chunk 512, warmup 10, lr 1e-3)
 TRAIN_OPTS = dict(remat="block", ce_chunk=512, opt=dict(warmup_steps=10, peak_lr=1e-3))
@@ -277,7 +303,8 @@ def _profile(fn, calls: int):
     """Profile ``calls`` calls of ``fn`` after a warm-up cycle of as many, so
     that the recorded cycle loses nothing to the profiler's start.  Returns
     {kernel name[:120]: (device ms, launches)}, the host wall ms of the
-    recorded cycle, and the wrapper counts' rise over it."""
+    recorded cycle, the wrapper counts' rise over it, and (top-level aten
+    ops, host waits on the device) per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -304,7 +331,10 @@ def _profile(fn, calls: int):
             by_kernel[ev.key[:120]] = (ms + us / 1e3, n + ev.count)
     ops = sum(1 for e in prof.events() if e.name.startswith("aten::") and not (
         e.cpu_parent is not None and e.cpu_parent.name.startswith("aten::")))
-    return by_kernel, wall_ms, launched, ops / calls
+    # host waits on the device: every *Synchronize call but the cycle's own
+    # two (the profiler adds one more of its own: a path that never waits reads 1)
+    syncs = sum(1 for e in prof.events() if "Synchronize" in e.name) - 2
+    return by_kernel, wall_ms, launched, (ops / calls, syncs / calls)
 
 
 def _lost_launches(by_kernel, calls, launched) -> str:
@@ -824,6 +854,13 @@ def phase_flash(dev, agree: OutputAgreement) -> dict:
     for arch, case in FLASH_MODELS.items():
         err = compare(f"flash {arch} {case}", case, SEED)[-1]
         log(f"flash: {arch} attention at one wave {case} within 2e-2, max abs err {err:.3g}")
+    q, k, v, out, err = compare(f"flash {SERVE_MOE} {FLASH_MOE}", FLASH_MOE, SEED)
+    again = fa.flash_attention(q, k, v, causal=True)
+    if not torch.equal(out.view(torch.int16), again.view(torch.int16)):
+        raise AssertionError(f"flash: {SERVE_MOE}'s shape: two launches gave different results")
+    log(f"flash: {SERVE_MOE} attention at one wave {FLASH_MOE} (hd 64, GQA 16:8) within "
+        f"2e-2, max abs err {err:.3g}, two launches bitwise equal")
+    del q, k, v, out, again
     log(f"flash: every comparison: max abs err {agree.max_abs:.3g}, max rel err "
         f"{agree.max_rel:.3g}")
 
@@ -852,7 +889,22 @@ def phase_flash(dev, agree: OutputAgreement) -> dict:
         for hd in sorted(built[dtype]):
             log(f"flash[{dtype}] hd {hd}: ptxas {timing['ptxas'][hd]}; SASS "
                 + ", ".join(f"{op} {n}" for op, n in timing["sass"][hd].items()))
-    return {**instances["bfloat16"], "instances": instances}
+    moe = flash_timing(dev, FLASH_MOE)
+    log(f"flash[{SERVE_MOE}]: {FLASH_MOE} kernel {moe['ms'] * 1e3:.1f} us/call, "
+        f"scaled_dot_product_attention {moe['library_ms'] * 1e3:.1f} us (in turns: "
+        + ", ".join(f"{n} {t * 1e3:.1f}" for n, t in zip(
+            ("kernel", "sdpa", "sdpa", "kernel"), moe["turns_ms"]))
+        + f"), plain {moe['plain_ms'] * 1e3:.1f} us, bound {moe['bound_ms'] * 1e3:.2f} us "
+        f"({moe['bound_by']}: {moe['flops'] / 1e9:.2f} GFLOP, {moe['bytes'] / 1e6:.1f} MB; "
+        f"the bytes alone {moe['bytes_ms'] * 1e3:.2f} us); host enqueue "
+        f"{moe['host_ms'] * 1e3:.1f} us (its input checks {moe['host_check_ms'] * 1e3:.1f} us); "
+        "device by kernel (torch.profiler, us/launch): "
+        + (", ".join(f"{n} {m * 1e3:.1f}" for n, m in moe["device_ms"].items())
+           or "not measured (no device time recorded)")
+        + "; scaled_dot_product_attention's: "
+        + (", ".join(f"{n} {m * 1e3:.1f}" for n, m in moe["library_device_ms"].items())
+           or "not measured (no device time recorded)"))
+    return {**instances["bfloat16"], "instances": instances, "moe": moe}
 
 
 _FLASH_INSTANCE = re.compile(r"flash_fwd_(wgmma_bf16|simt_f32)ILi(\d+)E")
@@ -1070,18 +1122,34 @@ def device_breakdown(fn) -> dict:
     host wall ms around it, the share of that wall time the device spent in
     no kernel (one stream, so kernels do not overlap), and the number of
     top-level aten ops the host dispatched."""
-    by_kernel, wall_ms, ops = profiled(fn, 1)
+    by_kernel, wall_ms, (ops, syncs) = profiled(fn, 1)
     busy = sum(ms for ms, _ in by_kernel.values())
     top = dict(sorted(((k, ms) for k, (ms, _) in by_kernel.items()), key=lambda kv: -kv[1])[:8])
     return {"wall_ms": wall_ms, "device_ms": busy, "top": top, "host_ops": int(ops),
-            "idle_share": (1.0 - busy / wall_ms) if busy > 0 else None}
+            "host_syncs": int(syncs),
+            "idle_share": (1.0 - busy / wall_ms) if busy > 0 else None,
+            "by_kernel": {k: ms for k, (ms, _) in by_kernel.items()}}
 
 
-def phase_serve(dev, arch: str, kernel: str, bf16_smokes=()) -> dict:
+def device_classes(by_kernel: dict) -> dict:
+    """Device ms by DEVICE_CLASSES (a kernel in the first class one of whose
+    name parts it holds), the rest as "elementwise"."""
+    out = {name: 0.0 for name, _ in DEVICE_CLASSES}
+    out["elementwise"] = 0.0
+    for kernel, ms in by_kernel.items():
+        low = kernel.lower()
+        cls = next((name for name, parts in DEVICE_CLASSES if any(p in low for p in parts)),
+                   "elementwise")
+        out[cls] += ms
+    return out
+
+
+def phase_serve(dev, arch: str, kernel: str, bf16_smokes=(), monitor=None) -> dict:
     """Serve ``arch`` at its published width through ``kernel``, which must
     launch once per layer per prefill wave while no other kernel launches;
     then hold the float32 smoke model of ``arch``, and the bf16 smoke model
-    of each of ``bf16_smokes``, on the card against the CPU."""
+    of each of ``bf16_smokes``, on the card against the CPU.  ``monitor``
+    is passed to serve (default: serve's own)."""
     import torch
 
     from repro_torch import configs
@@ -1101,7 +1169,8 @@ def phase_serve(dev, arch: str, kernel: str, bf16_smokes=()) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
     t0 = time.perf_counter()
-    out = serve(arch=arch, smoke=False, seed=SEED, params=params, device=dev, **SERVE)
+    out = serve(arch=arch, smoke=False, seed=SEED, params=params, device=dev,
+                monitor=monitor, **SERVE)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     counts = read_counts()
@@ -1156,7 +1225,8 @@ def phase_serve(dev, arch: str, kernel: str, bf16_smokes=()) -> dict:
         f"{SERVE['prompt_len']} tokens, decode {decode_ms:.2f} ms per step of "
         f"{SERVE['batch']} tokens (CUDA events, steps after the serve run)")
     for name, prof in (("prefill", prof_prefill), ("decode step", prof_decode)):
-        log(f"{tag}: {name} traced: {prof['host_ops']} top-level aten ops, wall "
+        log(f"{tag}: {name} traced: {prof['host_ops']} top-level aten ops, "
+            f"{prof['host_syncs']} host waits on the device (Synchronize calls), wall "
             f"{prof['wall_ms']:.2f} ms, device busy {prof['device_ms']:.2f} ms, idle share "
             + (f"{prof['idle_share']:.3f}" if prof["idle_share"] is not None
                else "not measured")
@@ -1169,7 +1239,8 @@ def phase_serve(dev, arch: str, kernel: str, bf16_smokes=()) -> dict:
     return {"counts": counts, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
             "tok_per_s": out["tok_per_s"], "peak_bytes": peak, "param_bytes": param_bytes,
             "prefill_idle_share": prof_prefill["idle_share"],
-            "decode_idle_share": prof_decode["idle_share"], "smoke": smoke}
+            "decode_idle_share": prof_decode["idle_share"], "smoke": smoke,
+            "prefill_by_kernel": prof_prefill["by_kernel"]}
 
 
 def smoke_card_vs_cpu(dev, arch: str, dtype: str, tag: str) -> dict:
@@ -1184,14 +1255,24 @@ def smoke_card_vs_cpu(dev, arch: str, dtype: str, tag: str) -> dict:
     itself beyond SMOKE_TOL of the CPU somewhere (a rounding flip amplified
     by the model), the kernel's run may not exceed the baseline's largest
     difference by more than the tolerance's 2e-2; elsewhere it is held
-    elementwise."""
+    elementwise.
+
+    A MoE model's routing is a discrete choice: a one-ulp difference in a
+    router logit at a near-tie picks another expert, and the token's row
+    then differs by far more than any rounding tolerance.  So for a MoE
+    model the card's kernel run goes first and records each moe_block
+    call's top-k experts, the other runs replay them (with their own
+    routing weights), and the logits are held by the rule above; the CPU
+    run without the replay is reported beside it, with the number of
+    routing choices the replay overrode."""
     import torch
 
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.models import model as M
-    from repro_torch.models.common import init_params
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.common import MOE as MOE_MLP, init_params
 
     smoke = dataclasses.replace(configs.smoke(arch), compute_dtype=getattr(torch, dtype))
     p_cpu = M.compute_params(smoke, init_params(smoke, SEED, "cpu"))
@@ -1200,10 +1281,25 @@ def smoke_card_vs_cpu(dev, arch: str, dtype: str, tag: str) -> dict:
     rng = np.random.default_rng(SEED)
     toks = torch.from_numpy(rng.integers(0, smoke.vocab, (2, 44)).astype(np.int32))
 
-    def logits_of(p, attention=None):
+    route, routes, overridden = MOE._route, [], []
+
+    def recording(p, xt, k):  # the card's kernel run: keep each call's experts
+        probs, vals, ids = route(p, xt, k)
+        routes.append(ids.cpu())
+        return probs, vals, ids
+
+    def pinned(p, xt, k):  # the other runs: the card's experts, their own weights
+        probs, _, own = route(p, xt, k)
+        ids = routes[len(overridden)].to(xt.device)
+        overridden.append(int((ids != own).sum()))
+        return probs, probs.gather(-1, ids), ids
+
+    def logits_of(p, attention=None, router=route):
         wrapper = ops._fa.flash_attention
         if attention is not None:
             ops._fa.flash_attention = attention
+        overridden.clear()
+        MOE._route = router
         try:
             t = toks.to(p["embed"].device)
             logits, cache = M.prefill(smoke, p, {"tokens": t[:, :40]}, max_seq=44)
@@ -1213,6 +1309,7 @@ def smoke_card_vs_cpu(dev, arch: str, dtype: str, tag: str) -> dict:
                 outs.append(logits[..., :smoke.vocab].float().cpu())
         finally:
             ops._fa.flash_attention = wrapper
+            MOE._route = route
         return torch.cat(outs, dim=1)
 
     calls = OutputAgreement()  # every attention call of the bf16 card run
@@ -1224,12 +1321,24 @@ def smoke_card_vs_cpu(dev, arch: str, dtype: str, tag: str) -> dict:
                     flash_attention_ref(q, k, v, **kw), FLASH_TOL[dtype])
         return got
 
-    cpu = logits_of(p_cpu)
-    card = logits_of(p_dev, recorded if dtype == "bfloat16" else None)
+    moe = smoke.mlp_has(MOE_MLP)
+    card = logits_of(p_dev, recorded if dtype == "bfloat16" else None,
+                     recording if moe else route)
+    replay = pinned if moe else route
+    cpu = logits_of(p_cpu, router=replay)
     tol = SMOKE_TOL[dtype]
     err = float((card - cpu).abs().max())
     beyond = lambda run: int(((run - cpu).abs() > tol["atol"] + tol["rtol"] * cpu.abs()).sum())  # noqa: E731
     out = {"max_abs_diff": err, "beyond_tol": beyond(card)}
+    if moe:
+        out.update(routing_choices=sum(int(r.numel()) for r in routes),
+                   routing_overridden=sum(overridden))
+        free = logits_of(p_cpu)
+        out.update(unpinned_max_abs_diff=float((card - free).abs().max()))
+        log(f"{tag}: {dtype} smoke {smoke.name}: the CPU run replays the card's "
+            f"{out['routing_choices']} top-k choices, {out['routing_overridden']} of which "
+            f"differ from its own; without the replay card vs CPU max abs diff "
+            f"{out['unpinned_max_abs_diff']:.3g}")
     if dtype == "float32":
         np.testing.assert_allclose(card.numpy(), cpu.numpy(), **tol,
                                    err_msg=f"{tag}: float32 smoke {smoke.name} logits, card vs CPU")
@@ -1238,28 +1347,262 @@ def smoke_card_vs_cpu(dev, arch: str, dtype: str, tag: str) -> dict:
             f"{err:.3g}")
         return out
 
-    base = logits_of(p_dev, flash_attention_ref)
+    base = logits_of(p_dev, flash_attention_ref, replay)
     base_err = float((base - cpu).abs().max())
     out.update(base_max_abs_diff=base_err, base_beyond_tol=beyond(base),
                attention_max_abs_err=calls.max_abs)
-    if out["base_beyond_tol"] == 0:
+    if moe:
+        # What one bf16 ulp of attention rounding does to this model: the
+        # CPU run with the plain attention's outputs moved one ulp up (down)
+        # at a seeded 30 % of elements.  The baseline is the larger of this
+        # and the card's plain-attention run.
+        def one_ulp(sign):
+            def attention(q, k, v, **kw):
+                o = flash_attention_ref(q, k, v, **kw)
+                g = torch.Generator().manual_seed(SEED + o.numel())
+                moved = torch.nextafter(o, torch.full_like(o, sign * math.inf))
+                return torch.where(torch.rand(o.shape, generator=g) < 0.3, moved, o)
+            return attention
+        ulp_err = max(float((logits_of(p_cpu, one_ulp(sign), replay) - cpu).abs().max())
+                      for sign in (1, -1))
+        out.update(one_ulp_max_abs_diff=ulp_err)
+        base_err = max(base_err, ulp_err)
+    if out["base_beyond_tol"] == 0 and not moe:
         np.testing.assert_allclose(card.numpy(), cpu.numpy(), **tol,
                                    err_msg=f"{tag}: bf16 smoke {smoke.name} logits, card vs CPU")
         held = f"elementwise within rtol {tol['rtol']} / atol {tol['atol']}"
     elif err > base_err + tol["atol"]:
         raise AssertionError(f"{tag}: bf16 smoke {smoke.name}: card (kernel) vs CPU max abs "
-                             f"diff {err:.3g} exceeds the card's plain-attention baseline "
-                             f"{base_err:.3g} by more than {tol['atol']}")
+                             f"diff {err:.3g} exceeds the baseline {base_err:.3g} by more "
+                             f"than {tol['atol']}")
     else:
-        held = (f"within the card's plain-attention baseline + {tol['atol']} (the baseline "
-                f"itself is beyond the elementwise tolerance somewhere)")
+        held = (f"within the baseline + {tol['atol']} (the card's plain-attention run"
+                + (f", or the CPU's with attention one ulp off: {ulp_err:.3g}" if moe else "")
+                + ")")
     log(f"{tag}: bf16 smoke {smoke.name} prefill(40) + 4 decode steps, card (kernel) vs CPU "
         f"(plain): logits {held}: max abs diff {err:.3g}, {out['beyond_tol']} of {cpu.numel()} "
-        f"beyond the elementwise tolerance; card with plain attention vs CPU {base_err:.3g}, "
+        f"beyond the elementwise tolerance; card with plain attention vs CPU "
+        f"{out['base_max_abs_diff']:.3g}, "
         f"{out['base_beyond_tol']} beyond; every in-model attention call within "
         f"{FLASH_TOL[dtype]} of the plain version (max abs err {calls.max_abs:.3g}); "
         f"largest logit {float(cpu.abs().max()):.3g}")
     return out
+
+
+# ------------------------------------------------------------- serve, MoE
+def http_get(endpoint, target: str, headers=()):
+    """One GET on a fresh connection -> (status, lower-cased headers, body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(*endpoint, timeout=30)
+    try:
+        conn.request("GET", target, headers=dict(headers))
+        r = conn.getresponse()
+        return r.status, {k.lower(): v for k, v in r.getheaders()}, r.read()
+    finally:
+        conn.close()
+
+
+class Viewer:
+    """A WebSocket viewer of the gateway's ``/ws`` on a thread of its own,
+    counting the ``frame`` messages it receives."""
+
+    def __init__(self, endpoint):
+        import base64
+        import socket
+        import threading
+
+        from repro_torch.viz import ws as W
+
+        self.sock = socket.create_connection(endpoint, timeout=30)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall((f"GET /ws HTTP/1.1\r\nHost: smoke\r\nUpgrade: websocket\r\n"
+                           f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+                           f"Sec-WebSocket-Version: 13\r\n\r\n").encode())
+        buf = b""
+        while b"\r\n\r\n" not in buf:
+            chunk = self.sock.recv(65536)
+            if not chunk:
+                raise AssertionError("viewer: the gateway closed during the upgrade")
+            buf += chunk
+        head, _, rest = buf.partition(b"\r\n\r\n")
+        if not head.startswith(b"HTTP/1.1 101"):
+            raise AssertionError(f"viewer: upgrade refused: {head[:80]!r}")
+        self.dec = W.WSDecoder(require_mask=False)
+        self.kinds = Counter(json.loads(m.data)["type"] for m in self.dec.feed(rest))
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        import socket
+
+        self.sock.settimeout(0.1)
+        while not self.stop.is_set():
+            try:
+                data = self.sock.recv(1 << 16)
+            except socket.timeout:
+                continue
+            if not data:
+                break
+            for m in self.dec.feed(data):
+                self.kinds[json.loads(m.data)["type"]] += 1
+
+    def close(self):
+        self.stop.set()
+        self.thread.join(timeout=10)
+        self.sock.close()
+        if self.thread.is_alive():
+            raise AssertionError("viewer: the reader thread did not stop")
+
+
+class Poller:
+    """GETs every VIZ_POLLED view in turn on a thread of its own until
+    ``done()`` holds or it is stopped; keeps each answer's status."""
+
+    def __init__(self, endpoint, done):
+        import threading
+
+        self.endpoint, self.done, self.statuses = endpoint, done, Counter()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        while not self.stop.is_set() and not self.done():
+            for target in VIZ_POLLED:
+                self.statuses[(target, http_get(self.endpoint, target)[0])] += 1
+            self.stop.wait(VIZ_POLL_S)
+
+    def close(self):
+        self.stop.set()
+        self.thread.join(timeout=30)
+        if self.thread.is_alive():
+            raise AssertionError("poller: the thread did not stop")
+
+
+def check_gateway(tag: str, mon, viewer) -> dict:
+    """Path G's gateway checks after serve: every frame reached the viewer,
+    every view equals VizServer's on the same monitor, ``/trace`` its bytes,
+    a repeat GET answers 304; then the cost of one broadcast."""
+    from repro_torch.viz.server import VizServer
+
+    gw, viz = mon.viz_gateway, VizServer(mon)
+    deadline = time.monotonic() + 30
+    while viewer.kinds["frame"] < mon.frames_ingested and time.monotonic() < deadline:
+        time.sleep(0.01)
+    if not viewer.kinds["frame"] == gw.broadcasts == mon.frames_ingested > 0:
+        raise AssertionError(f"{tag}: the viewer got {dict(viewer.kinds)}, the gateway made "
+                             f"{gw.broadcasts} broadcasts, the monitor ingested "
+                             f"{mon.frames_ingested} frames")
+    rank, step = sorted(mon.kept)[-1]
+    t0, t1 = 0, 1 << 62
+    views = {"/dashboard": viz.rank_dashboard(), f"/series?rank={rank}": viz.frame_series(rank),
+             f"/function?rank={rank}&step={step}": viz.function_view(rank, step),
+             f"/callstack?rank={rank}&t0={t0}&t1={t1}": viz.call_stack_view(rank, t0, t1),
+             "/provenance": viz.provenance_view()}
+    for target, want in views.items():
+        st, hdrs, body = http_get(gw.endpoint, target)
+        if st != 200 or json.loads(body) != json.loads(json.dumps(want)):
+            raise AssertionError(f"{tag}: {target} answered {st}, not VizServer's view")
+        if http_get(gw.endpoint, target, [("If-None-Match", hdrs["etag"])])[0] != 304:
+            raise AssertionError(f"{tag}: a repeat GET of {target} did not answer 304")
+    st, hdrs, trace = http_get(gw.endpoint, "/trace")
+    if st != 200 or hdrs.get("transfer-encoding") != "chunked" or trace != viz.trace():
+        raise AssertionError(f"{tag}: /trace ({st}) is not VizServer(monitor).trace()'s bytes")
+    before = viewer.kinds["frame"]
+    t = time.perf_counter()
+    for i in range(VIZ_PUBLISHES):
+        gw.publish_frame(rank, step + 1 + i, 0)
+    publish_us = (time.perf_counter() - t) * 1e6 / VIZ_PUBLISHES
+    t = time.perf_counter()
+    while viewer.kinds["frame"] < before + VIZ_PUBLISHES and time.perf_counter() - t < 30:
+        time.sleep(0.001)
+    delivered_us = (time.perf_counter() - t) * 1e6 / VIZ_PUBLISHES
+    if viewer.kinds["frame"] != before + VIZ_PUBLISHES:
+        raise AssertionError(f"{tag}: {viewer.kinds['frame'] - before} of {VIZ_PUBLISHES} "
+                             "extra broadcasts reached the viewer")
+    return {"frames": mon.frames_ingested, "views": sorted(views), "trace_bytes": len(trace),
+            "publish_us": publish_us, "drain_us": delivered_us}
+
+
+def phase_serve_moe(dev) -> dict:
+    """Main path G: SERVE_MOE served at its published width with path C's
+    traffic under a monitor with the live viz gateway, a WebSocket viewer
+    and an HTTP poller attached while it runs; the gateway checks after;
+    the float32 and bf16 smoke models card vs CPU; moe_block bitwise
+    repeatable on the card at the prefill wave's shape; and the prefill's
+    device time by kernel class (the MoE dispatch against its GEMMs)."""
+    import socket
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.common import init_params
+    from repro_torch.trace.monitor import ChimbukoMonitor
+
+    tag = f"serve_moe[{SERVE_MOE}]"
+    mon = ChimbukoMonitor(num_funcs=16, min_samples=8, viz_serve=0)  # serve's own settings
+    endpoint = mon.viz_gateway.endpoint
+    waves = -(-SERVE["n_requests"] // SERVE["batch"])  # serve ingests one frame per wave
+    viewer, poller = Viewer(endpoint), Poller(endpoint, lambda: mon.frames_ingested >= waves)
+    try:
+        served = phase_serve(dev, SERVE_MOE, "flash_attention", bf16_smokes=(SERVE_MOE,),
+                             monitor=mon)
+        poller.close()
+        bad = {k: n for k, n in poller.statuses.items() if k[1] != 200}
+        if bad or not poller.statuses:
+            raise AssertionError(f"{tag}: the poller's GETs during serve: {dict(poller.statuses)}")
+        viz = check_gateway(tag, mon, viewer)
+    finally:
+        poller.close()
+        viewer.close()
+        mon.close()
+    try:
+        socket.create_connection(endpoint, timeout=2).close()
+    except OSError:
+        pass
+    else:
+        raise AssertionError(f"{tag}: the gateway's port is still open after monitor.close()")
+    polls = sum(poller.statuses.values())
+    log(f"{tag}: live viz gateway: a WebSocket viewer received {viz['frames']} frame messages "
+        f"= the gateway's broadcasts = the frames ingested; {polls} GETs of "
+        f"{', '.join(VIZ_POLLED)} during serve, all 200; {', '.join(viz['views'])} equal "
+        f"VizServer's views and answer 304 to a repeat GET; /trace ({viz['trace_bytes']} "
+        f"bytes, chunked) equals VizServer(monitor).trace(); the port is closed after "
+        f"monitor.close(); one broadcast: {viz['publish_us']:.1f} us of host time to publish, "
+        f"{viz['drain_us']:.1f} us per message to reach the viewer ({VIZ_PUBLISHES} in a row)")
+
+    cfg = configs.get_config(SERVE_MOE)
+    classes = device_classes(served.pop("prefill_by_kernel"))
+    busy = sum(classes.values())
+    log(f"{tag}: prefill device time by kernel class (ms, share of {busy:.3f} ms busy): "
+        + ", ".join(f"{c} {ms:.3f} ({ms / busy:.3f})" for c, ms in classes.items()))
+    # moe_block at the prefill wave's shape, one layer's weights, twice
+    gc.collect()
+    torch.cuda.empty_cache()
+    layer = M.compute_params(cfg, init_params(dataclasses.replace(cfg, n_layers=1), SEED, dev))
+    p = {k: layer["layers"][0][k][0] for k in MOE.KEYS}
+    del layer
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((SERVE["batch"], SERVE["prompt_len"], cfg.d_model), generator=g,
+                    device=dev).to(cfg.compute_dtype)
+    a, b = MOE.moe_block(p, x, cfg), MOE.moe_block(p, x, cfg)
+    if not torch.equal(a.view(torch.int16), b.view(torch.int16)) or \
+            not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"{tag}: two moe_block calls on the same input differ")
+    block_ms = cuda_ms(lambda: MOE.moe_block(p, x, cfg), iters=10)
+    block = device_classes(device_breakdown(lambda: MOE.moe_block(p, x, cfg))["by_kernel"])
+    N = SERVE["batch"] * SERVE["prompt_len"]
+    log(f"{tag}: moe_block at ({SERVE['batch']}, {SERVE['prompt_len']}, {cfg.d_model}) bf16, "
+        f"E {cfg.moe_experts} top-{cfg.moe_topk}, capacity {MOE.capacity(cfg, N)}: two calls "
+        f"bitwise equal; {block_ms:.3f} ms per call (CUDA events); device ms by class: "
+        + ", ".join(f"{c} {ms:.3f}" for c, ms in block.items()))
+    del a, b, x, p
+    return {**served, "viz": viz, "prefill_classes": classes, "moe_block_ms": block_ms,
+            "moe_block_classes": block}
 
 
 # ---------------------------------------------------------------- refusals
@@ -1903,14 +2246,17 @@ def main() -> int:
     served = phase_serve(dev, "gemma-2b", "flash_attention",
                          bf16_smokes=("gemma-2b", "gemma2-2b"))
     served_ssm = phase_serve(dev, "falcon-mamba-7b", "mamba_scan")
+    served_moe = phase_serve_moe(dev)
     trained = phase_train(dev)
     trained_socket = phase_train_socket(dev, trained)
 
     paths = {"trace": trace["counts"], "width": width["counts"], "serve": served["counts"],
-             "serve_ssm": served_ssm["counts"], "train": trained["counts"],
+             "serve_ssm": served_ssm["counts"], "serve_moe": served_moe["counts"],
+             "train": trained["counts"],
              "train_socket": trained_socket["counts"]}
     needs = {"trace": "moments_and_labels", "width": "moments_and_labels",
-             "serve": "flash_attention", "serve_ssm": "mamba_scan"}
+             "serve": "flash_attention", "serve_ssm": "mamba_scan",
+             "serve_moe": "flash_attention"}
     for path, name in needs.items():
         if paths[path][name] <= 0:
             raise AssertionError(f"main path {path} never launched {name}: {paths[path]}")
@@ -1972,6 +2318,17 @@ def main() -> int:
             for dtype, inst in flash["instances"].items()},
         "serve": serve_numbers(served),
         "smoke": served["smoke"],
+        "moe_shape": {
+            **dict(zip(("B", "Sq", "Sk", "H", "KV", "hd", "causal", "window", "cap", "dtype"),
+                       FLASH_MOE)),
+            **{key: flash["moe"][key] for key in (
+                "ms", "turns_ms", "device_ms", "host_ms", "host_check_ms", "plain_ms",
+                "bound_ms", "bound_by", "ops_ms", "bytes_ms", "library_ms",
+                "library_device_ms")}},
+        "serve_moe": {**serve_numbers(served_moe), "smoke": served_moe["smoke"],
+                      "viz": served_moe["viz"], "prefill_classes": served_moe["prefill_classes"],
+                      "moe_block_ms": served_moe["moe_block_ms"],
+                      "moe_block_classes": served_moe["moe_block_classes"]},
     }, {
         "name": "mamba_scan",
         "route": "cuda",

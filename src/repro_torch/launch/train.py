@@ -23,6 +23,8 @@ Usage (on a CUDA card; ``--device cpu`` runs on the CPU):
   # the monitor's PS and provenance in two supervised shard worker processes:
   python -m repro_torch.launch.train --ps-transport socket --provdb-transport socket \\
       --provdb-shards 2 --shard-endpoints spawn:2 --supervise --ps-wal /tmp/wal
+  # a MoE model, with the live viz gateway on an ephemeral port:
+  python -m repro_torch.launch.train --arch granite-moe-1b-a400m --steps 20 --viz-port 0
 """
 from __future__ import annotations
 
@@ -35,7 +37,6 @@ from typing import Dict, Optional
 import torch
 
 from .. import configs
-from .._unported import unported
 from ..checkpoint import ckpt as CK
 from ..data.pipeline import DataShard, SyntheticStream, to_device
 from ..device import resolve
@@ -75,8 +76,6 @@ def train(
     """The JAX driver's ``train``; ``device=None`` is the port's default
     device (``cuda:0``; raises without CUDA).  Shard workers are host
     processes and never touch the card."""
-    if viz_port is not None:
-        raise unported("--viz-port (repro.viz.gateway)", "2d")
     device = resolve(device)
     # Arm distributed request tracing before anything spawns: shard worker
     # processes read REPRO_SPANS at import, so the env var must be set
@@ -146,7 +145,26 @@ def train(
                 os.path.join(monitor_dir, "trace.json")
                 if export_trace and monitor_dir else None
             ),
+            viz_serve=viz_port,
         )
+        if monitor.viz_gateway is not None:
+            # One consolidated banner with the *full* endpoint set — viz,
+            # metrics, and every shard process — printed after endpoint
+            # resolution, so operators can point scrapers at each process.
+            host, port = monitor.viz_gateway.endpoint
+            banner = [
+                f"[endpoints] viz      http://{host}:{port}/ "
+                f"(ws://{host}:{port}/ws)",
+                f"[endpoints] metrics  http://{host}:{port}/metrics",
+            ]
+            if trace_spans:
+                banner.append(
+                    f"[endpoints] spans    http://{host}:{port}/spans"
+                    " (?dump=1 freezes the flight recorders)"
+                )
+            for i, (sh, sp) in enumerate(endpoints or ()):
+                banner.append(f"[endpoints] shard{i}   {sh}:{sp} (metrics.snapshot)")
+            print("\n".join(banner), flush=True)
         monitor.on_straggler(
             lambda ev: print(f"[monitor] straggler: step={ev.step} z={ev.zscore:.1f}")
         )
@@ -242,7 +260,9 @@ def main():
     )
     ap.add_argument(
         "--viz-port", type=int, default=None,
-        help="serve the live viz gateway (not ported yet: item 2d)",
+        help="serve the live viz gateway on this port (0 = ephemeral): HTTP "
+        "views + /trace for Perfetto open-with-URL + a WebSocket per-frame "
+        "anomaly broadcast at /ws",
     )
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: cuda:0")

@@ -27,10 +27,9 @@ FULL, SWA, MLA, MAMBA = "full", "swa", "mla", "mamba"
 # MLP kinds.
 DENSE, MOE, NONE = "dense", "moe", "none"
 
-# What the port does not cover yet, with its ROADMAP.md queue 1 item:
-# raised as NotImplementedError wherever it is asked for.
+# What the port does not cover yet, with its ROADMAP.md queue 1 item (all
+# item 9): raised as NotImplementedError wherever it is asked for.
 UNPORTED = {
-    MOE: ("the MoE MLP", 8),
     MLA: ("the MLA mixer", 9),
     "mrope": ("M-RoPE positions", 9),
     "audio_stub": ("the audio-stub modality", 9),
@@ -212,8 +211,6 @@ def layer_param_shapes(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Tuple[Tup
     order is JAX's dict order, which is also the draw order."""
     if spec.mixer == MLA:
         raise unported(MLA)
-    if spec.mlp == MOE:
-        raise unported(MOE)
     d = cfg.d_model
     out: Dict[str, Tuple[Tuple[int, ...], str]] = {"ln1": ((d,), "ones")}
     if spec.mixer == MAMBA:
@@ -240,6 +237,13 @@ def layer_param_shapes(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Tuple[Tup
             out["w_gate"] = ((d, f), "dense")
         out["w_up"] = ((d, f), "dense")
         out["w_down"] = ((f, d), "dense")
+    elif spec.mlp == MOE:
+        E, f = cfg.moe_experts, cfg.moe_dff
+        out["ln2"] = ((d,), "ones")
+        out["router"] = ((d, E), "dense")
+        out["moe_gate"] = ((E, d, f), "dense")
+        out["moe_up"] = ((E, d, f), "dense")
+        out["moe_down"] = ((E, f, d), "dense")
     if cfg.sandwich_norm:
         out["post_ln1"] = ((d,), "ones")
         if spec.mlp != NONE:

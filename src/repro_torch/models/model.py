@@ -10,8 +10,9 @@ Modes:
   decode_step  single-token step against the cache
 
 The subset of the JAX model ported so far: FULL, SWA and MAMBA mixers, the
-dense MLP (or none), ``sandwich_norm``, ``emb_scale`` and both softcaps.
-MLA and MoE raise ``NotImplementedError`` naming their ROADMAP.md item.
+dense and MoE MLPs (or none), ``sandwich_norm``, ``emb_scale`` and both
+softcaps.  MLA, M-RoPE and the modality stubs raise ``NotImplementedError``
+naming their ROADMAP.md item.
 
 Differences of form, not of values, from the JAX package:
   * ``lax.scan`` over periods is a Python loop over layers; parameters and
@@ -42,6 +43,7 @@ from ..kernels import ops
 from . import layers as L
 from . import mamba as MB
 from .common import MAMBA, MLA, MOE, NONE, SWA, LayerSpec, ModelConfig, unported
+from .moe import moe_block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +64,6 @@ def _check_supported(cfg: ModelConfig) -> None:
     for spec in cfg.layout:
         if spec.mixer == MLA:
             raise unported(MLA)
-        if spec.mlp == MOE:
-            raise unported(MOE)
 
 
 # ---------------------------------------------------------------- embedding
@@ -177,10 +177,16 @@ def _attn_seq_with_cache(cfg, spec, p, h, cos, sin):
     return out.reshape(B, S, -1) @ p["wo"], (k, v)
 
 
+def _mlp_apply(cfg, spec, p, h):
+    if spec.mlp == MOE:
+        return moe_block(p, h, cfg)
+    return L.mlp(p, h, cfg.activation)
+
+
 def _mlp_residual(cfg, spec, p, x):
     if spec.mlp == NONE:
         return x
-    h = L.mlp(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg.activation)
+    h = _mlp_apply(cfg, spec, p, L.rms_norm(x, p["ln2"], cfg.norm_eps))
     if cfg.sandwich_norm:
         h = L.rms_norm(h, p["post_ln2"], cfg.norm_eps)
     return x + h
@@ -327,7 +333,9 @@ def _attn_decode(cfg, spec, p, h, cache, pos: int, cos, sin):
     slot = pos % Sc  # ring for SWA; plain index otherwise (pos < Sc)
     cache["k"][:, slot] = k[:, 0]
     cache["v"][:, slot] = v[:, 0]
-    cache["kpos"][slot] = pos
+    # fill_, not ``= pos``: item assignment copies a CPU scalar tensor to the
+    # card, a pageable copy that makes the host wait once per layer
+    cache["kpos"][slot].fill_(pos)
     window = cfg.window if spec.mixer == SWA else 0
     acc, m, l = L.attention_partial(
         q, cache["k"], cache["v"], causal=True, window=window, cap=cfg.attn_softcap,

@@ -16,7 +16,6 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch._unported import unported
 from repro_torch.core.ad import ADFrameResult, OnNodeAD
 from repro_torch.core.events import Frame, FunctionRegistry
 from repro_torch.core.provenance import FederatedProvenanceDB, ProvenanceDB
@@ -216,11 +215,13 @@ class ChimbukoMonitor:
             self._stream_writer = RecordStreamWriter(stream_path,
                                                      append=prov_append)
         # live viz gateway (paper §IV's online server): HTTP views + /trace
-        # + WebSocket per-frame broadcast, on the repro.net event loop.
+        # + WebSocket per-frame broadcast, on the repro_torch.net event loop.
         self.frames_ingested = 0
         self.viz_gateway = None
         if viz_serve is not None:
-            raise unported("ChimbukoMonitor(viz_serve=...) (repro.viz)")
+            from repro_torch.viz.gateway import VizGateway  # lazy: circular import
+
+            self.viz_gateway = VizGateway(self, port=viz_serve).start()
         # straggler detection state
         self._stime = RunningStats()
         self._s_alpha = straggler_alpha

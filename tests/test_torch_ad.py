@@ -184,7 +184,11 @@ def test_port_sources_import_no_jax_and_nothing_of_repro_at_any_depth():
             "repro_torch.telemetry.__main__", "repro_torch.telemetry.federate",
             "repro_torch.lint.runtime", "repro_torch.net.framing", "repro_torch.net.client",
             "repro_torch.net.server", "repro_torch.net.shards",
-            "repro_torch.launch.shard_server"} <= walked
+            "repro_torch.launch.shard_server", "repro_torch.models.moe",
+            "repro_torch.viz.http", "repro_torch.viz.ws", "repro_torch.viz.gateway",
+            "repro_torch.lint.model", "repro_torch.lint.callgraph", "repro_torch.lint.rules",
+            "repro_torch.lint.baseline", "repro_torch.lint.cli",
+            "repro_torch.lint.__main__"} <= walked
     # the check sees nested imports: a function-level one is caught
     probe = REPO / "src" / "repro_torch" / "trace" / "monitor.py"
     assert "repro_torch.fault.health" in set(_imported_modules(probe))

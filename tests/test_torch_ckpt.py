@@ -228,10 +228,30 @@ def test_monitored_run_writes_the_jax_drivers_outputs(tmp_path):
     assert info["cuda_version"] == torch.version.cuda and info["device_name"] == "cpu"
 
 
-@pytest.mark.parametrize("kw,item", [(dict(viz_port=0), "item 2d")])
-def test_unported_driver_options_raise_naming_their_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train(steps=1, **_KW, **kw)
+def test_driver_viz_port_prints_the_banner_and_serves(monkeypatch, capsys):
+    """``train(viz_port=0)`` (item 2d) prints the JAX driver's endpoint
+    banner, and its gateway serves the live run: a GET made from inside
+    the run, after each frame is ingested, sees every frame so far."""
+    import urllib.request
+
+    from repro_torch.trace.monitor import ChimbukoMonitor
+
+    seen = []
+    ingest = ChimbukoMonitor.ingest
+
+    def ingest_and_look(self, frame):
+        ingest(self, frame)
+        with urllib.request.urlopen(self.summary()["viz_endpoint"] + "/series?rank=0",
+                                    timeout=10) as r:
+            seen.append(len(json.loads(r.read())))
+
+    monkeypatch.setattr(ChimbukoMonitor, "ingest", ingest_and_look)
+    out = train(steps=3, viz_port=0, **_KW)
+    banner = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[endpoints]")]
+    assert [ln.split()[1] for ln in banner] == ["viz", "metrics"]
+    assert "/ws)" in banner[0] and banner[1].endswith("/metrics")
+    assert seen == [1, 2, 3] and out["monitor"]["frames"] == 3
+    assert "viz_endpoint" in out["monitor"]
 
 
 @pytest.mark.parametrize("kw,want", [

@@ -352,7 +352,6 @@ def test_configs_are_copies_of_the_jax_configs():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("jamba-v0.1-52b", "item 8"), ("granite-moe-1b-a400m", "item 8"),
     ("minicpm3-4b", "item 9"), ("qwen2-vl-2b", "item 9"), ("hubert-xlarge", "item 9"),
 ])
 def test_unported_families_raise_naming_their_roadmap_item(arch, item):

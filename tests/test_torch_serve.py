@@ -6,6 +6,7 @@ weights (carried from JAX ``init_params``), and the port's copy of
 telemetry and health) against the original on identical trace frames.
 """
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -141,10 +142,25 @@ def test_monitor_copy_matches_the_original_on_identical_frames(layout, tmp_path)
     assert docs[0] == docs[1] and len(docs[0]) == js["provenance_records"]
 
 
-@pytest.mark.parametrize("option", [dict(viz_serve=0)])
-def test_unported_monitor_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 2"):
-        TMonitor(num_funcs=4, **option)
+def test_monitor_viz_serve_option_runs():
+    """``viz_serve=0`` (item 2d) starts the port's live gateway on an
+    ephemeral port: the summary names it, it answers, and close() stops it."""
+    import socket
+    import urllib.request
+
+    from repro_torch.viz.gateway import VizGateway
+
+    mon = TMonitor(num_funcs=4, viz_serve=0)
+    assert isinstance(mon.viz_gateway, VizGateway)
+    url = mon.summary()["viz_endpoint"]
+    with urllib.request.urlopen(url + "/", timeout=10) as r:
+        index = json.loads(r.read())
+    assert index["service"] == "repro_torch.viz.gateway" and index["frames"] == 0
+    host, port = mon.viz_gateway.endpoint
+    mon.close()
+    assert mon.viz_gateway is None and "viz_endpoint" not in mon.summary()
+    with pytest.raises(OSError):
+        socket.create_connection((host, port), timeout=1)
 
 
 @pytest.mark.parametrize("option", [
