@@ -27,9 +27,12 @@ non-zero):
            the card: the repo's 8 test shapes, the kv_len case, ragged shapes,
            100 random shapes, the full-width gemma-2b prefill shape (B 4,
            S 1024, H 8, KV 1, hd 256, causal, bf16, and again in float32) and
-           the attention shapes of gemma2-2b, h2o-danube3-4b and
-           granite-moe-1b-a400m (hd 64, GQA 16:8; its determinism and timing
-           beside scaled_dot_product_attention too) at one wave;
+           the attention shapes of gemma2-2b, h2o-danube3-4b,
+           granite-moe-1b-a400m (hd 64, GQA 16:8), minicpm3-4b (MLA: qk 96,
+           v 64, H = KV = 40, through ops.flash_attention's padding to hd 128)
+           and qwen2-vl-2b (hd 128, GQA 12:2) at one wave, the last three
+           also timed beside scaled_dot_product_attention, with their
+           bounds on the unpadded work;
            bf16 goes through the tensor-core instances (wgmma, TMA), float32
            through the CUDA-core one.  Each instance's SASS instruction counts
            (HGMMA and UTMALDG required in bf16) and ptxas line (no spills), a
@@ -61,6 +64,16 @@ non-zero):
            of one broadcast, the smoke models card vs CPU (float32, bf16),
            moe_block bitwise repeatable at the prefill wave's shape, and the
            prefill's device time by kernel class (MoE dispatch vs GEMMs);
+  serve (minicpm3-4b)  main path H: path C's traffic on minicpm3-4b at its
+           published width (62 MLA layers: prefill attention through the
+           flash kernel with v padded like q/k, decode on the latent cache);
+           the smoke models card vs CPU with v head dim 16 below qk 24;
+  serve_vl main path I: the serve of examples/serve_monitored_torch.py on
+           qwen2-vl-2b at its published width (M-RoPE, the vision stub) with
+           path C's traffic and the example's monitor settings, after the
+           example itself on the card; one full-width prefill wave whose
+           batch carries visual_embeds and pos3; the smoke models card vs CPU
+           with visual_embeds and pos3;
   refusals the card-only limits (moments' F, flash's TMA alignment) raise
            for CUDA tensors without a launch; the CPU takes the same inputs;
   train    main path E: repro_torch.launch.train.train on gemma-2b at its
@@ -84,6 +97,11 @@ non-zero):
            snapshot and provenance files byte-identical, anomalies equal;
            step times, tokens/s and peak memory beside path E's, the
            workers' spawn time, each respawn and the replay rates;
+  train_audio  main path J: repro_torch.launch.train.train on hubert-xlarge
+           at its published width (48 bidirectional layers on the stream's
+           frame embeddings) with path E's options, 4 steps, monitored: no
+           port kernel launched; one traced step; one float32 step cut to 2
+           layers card vs CPU;
 
 then the script's wall time, the card's name and power limit, one JSON line
 describing every ported kernel, and last
@@ -152,6 +170,11 @@ FLASH_MODELS = {  # the other bf16 configs' attention at one wave (configs/*.py)
     "h2o-danube3-4b": (4, 1024, 1024, 32, 8, 120, True, 4096, 0.0, "bfloat16"),
 }
 FLASH_MOE = (4, 1024, 1024, 16, 8, 64, True, 0, 0.0, "bfloat16")  # granite-moe prefill wave
+# minicpm3-4b's MLA prefill wave: q/k at qk 64 + 32 = 96, v at FLASH_MLA_DV, H = KV = 40;
+# ops.flash_attention pads all three to hd 128 and crops the output to 64
+FLASH_MLA = (4, 1024, 1024, 40, 40, 96, True, 0, 0.0, "bfloat16")
+FLASH_MLA_DV = 64
+FLASH_VL = (4, 1024, 1024, 12, 2, 128, True, 0, 0.0, "bfloat16")  # qwen2-vl-2b prefill wave
 FLASH_SASS = ("HGMMA", "UTMALDG", "SYNCS", "MUFU", "FFMA", "FMUL", "LDS", "STS", "BAR")
 FLASH_SWEEP = 100  # random shapes: GQA groups, head dims, ragged lengths, masks, dtypes
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:88
@@ -165,6 +188,12 @@ SCAN_TOL = 1e-5  # tests/test_kernels.py:133-134
 SCAN_OPS_PER_STATE = 4  # h = a*h + b (2), h*C and its share of the sum over st (2)
 SERVE = dict(n_requests=8, batch=4, prompt_len=1024, max_new=32)
 SERVE_MOE = "granite-moe-1b-a400m"  # path G: the one MoE config whose float32 masters fit
+SERVE_MLA = "minicpm3-4b"  # path H: 62 MLA layers
+SERVE_VL = "qwen2-vl-2b"  # path I: M-RoPE and the vision stub, served by the example's twin
+SERVE_VL_EXAMPLE = "examples/serve_monitored_torch.py"
+# The smoke models' card-vs-CPU checks take these changes to configs.smoke: its
+# MLA config has v_head_dim equal to its qk dim (8 + 8), which hides the v padding.
+SMOKE_REPLACE = {SERVE_MLA: dict(qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16)}
 # Path G's live viewers: the HTTP views polled while serve runs, and the
 # per-frame cost of a broadcast timed over this many publishes afterwards.
 VIZ_POLLED = ("/", "/dashboard", "/series?rank=0", "/metrics")
@@ -193,6 +222,9 @@ TRAIN_SOCKET = dict(steps=24, inject_straggler_at=20, shards=2, loss_rtol=1e-5,
 # The training driver's monitor settings (launch/train.py), for the replays.
 TRAIN_MONITOR = dict(num_funcs=32, kw=dict(min_samples=8, alpha=6.0, straggler_alpha=3.0,
                                            straggler_min_steps=8))
+# Path J: hubert-xlarge (the audio stub, a bidirectional encoder) trained at its
+# published width on the stream's frame embeddings with path E's options.
+TRAIN_AUDIO = dict(arch="hubert-xlarge", steps=4, global_batch=4, seq=1024)
 TRAIN_LOSS0_ATOL = 2.0  # step 0 near ln V: random weights give near-uniform logits
 # The card-vs-CPU step: float32 (TF32 off), full width cut to 2 layers.  Loss
 # and grad norm at float32 sums' tolerances; Adam's first step moves each
@@ -775,21 +807,25 @@ class OutputAgreement:
             self.max_rel = max(self.max_rel, float((err[big] / w.abs()[big]).max()))
 
 
-def _flash_inputs(dev, case, seed):
+def _flash_inputs(dev, case, seed, dv=None):
+    """q, k (head dim hd) and v (head dim ``dv``, default hd) at ``case``."""
     import torch
 
     B, Sq, Sk, H, KV, hd, _, _, _, dtype = case
     rng = np.random.default_rng(seed)
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
     return [torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(dev, dt)
-            for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))]
+            for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, dv or hd))]
 
 
-def flash_bound(case) -> dict:
-    """The least time for one call at ``case``: the QK^T and PV products of
-    the live (query, key) pairs over the bf16 tensor-core rate, against each
-    input read once and the output written once over the memory rate."""
+def flash_bound(case, dv=None) -> dict:
+    """The least time for one call at ``case``: the QK^T (head dim hd) and PV
+    (head dim ``dv``, default hd) products of the live (query, key) pairs
+    over the bf16 tensor-core rate, against each input read once and the
+    output written once over the memory rate; unpadded, as the function
+    needs them (MLA's padding to a kernel width is not counted)."""
     B, Sq, Sk, H, KV, hd, causal, window, _, dtype = case
+    dv = dv or hd
     q = np.arange(Sq)[:, None]
     k = np.arange(Sk)[None, :]
     live = np.ones((Sq, Sk), bool)
@@ -797,9 +833,9 @@ def flash_bound(case) -> dict:
         live &= k <= q
     if window > 0:
         live &= (q - k) < window
-    flops = 4.0 * hd * B * H * float(live.sum())  # 2 per multiply-add, two products
+    flops = 2.0 * (hd + dv) * B * H * float(live.sum())  # 2 per multiply-add, two products
     itemsize = 2 if dtype == "bfloat16" else 4
-    nbytes = itemsize * (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd)
+    nbytes = itemsize * (B * Sq * H * (hd + dv) + B * Sk * KV * (hd + dv))
     rate = H100_BF16_OPS_PER_S if dtype == "bfloat16" else H100_F32_OPS_PER_S
     ops_ms, bytes_ms = flops / rate * 1e3, nbytes / H100_BYTES_PER_S * 1e3
     return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
@@ -814,8 +850,8 @@ def phase_flash(dev, agree: OutputAgreement) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import flash_attention_ref
 
-    def compare(what, case, seed, kv_len=None):
-        q, k, v = _flash_inputs(dev, case, seed)
+    def compare(what, case, seed, kv_len=None, dv=None):
+        q, k, v = _flash_inputs(dev, case, seed, dv)
         kw = dict(causal=case[6], window=case[7], cap=case[8], kv_len=kv_len)
         got, want = ops.flash_attention(q, k, v, **kw), flash_attention_ref(q, k, v, **kw)
         agree.check(what, got, want, FLASH_TOL[case[9]])
@@ -861,6 +897,21 @@ def phase_flash(dev, agree: OutputAgreement) -> dict:
     log(f"flash: {SERVE_MOE} attention at one wave {FLASH_MOE} (hd 64, GQA 16:8) within "
         f"2e-2, max abs err {err:.3g}, two launches bitwise equal")
     del q, k, v, out, again
+    q, k, v, out, err = compare(f"flash {SERVE_MLA} {FLASH_MLA} v {FLASH_MLA_DV}", FLASH_MLA, SEED,
+                                dv=FLASH_MLA_DV)
+    again = ops.flash_attention(q, k, v, causal=True)
+    if tuple(out.shape) != FLASH_MLA[:2] + (FLASH_MLA[3], FLASH_MLA_DV) or \
+            not torch.equal(out.view(torch.int16), again.view(torch.int16)):
+        raise AssertionError(f"flash: {SERVE_MLA}'s shape: output {tuple(out.shape)}, or two "
+                             "calls gave different results")
+    log(f"flash: {SERVE_MLA} MLA attention at one wave {FLASH_MLA} (qk 96, v {FLASH_MLA_DV}, "
+        f"H = KV = 40) through ops.flash_attention (q, k, v padded to hd "
+        f"{ops.padded_head_dim(FLASH_MLA[5])}, the output cropped) within 2e-2, max abs err "
+        f"{err:.3g}, two calls bitwise equal")
+    del q, k, v, out, again
+    err = compare(f"flash {SERVE_VL} {FLASH_VL}", FLASH_VL, SEED)[-1]
+    log(f"flash: {SERVE_VL} attention at one wave {FLASH_VL} (hd 128, GQA 12:2) within 2e-2, "
+        f"max abs err {err:.3g}")
     log(f"flash: every comparison: max abs err {agree.max_abs:.3g}, max rel err "
         f"{agree.max_rel:.3g}")
 
@@ -889,22 +940,35 @@ def phase_flash(dev, agree: OutputAgreement) -> dict:
         for hd in sorted(built[dtype]):
             log(f"flash[{dtype}] hd {hd}: ptxas {timing['ptxas'][hd]}; SASS "
                 + ", ".join(f"{op} {n}" for op, n in timing["sass"][hd].items()))
-    moe = flash_timing(dev, FLASH_MOE)
-    log(f"flash[{SERVE_MOE}]: {FLASH_MOE} kernel {moe['ms'] * 1e3:.1f} us/call, "
-        f"scaled_dot_product_attention {moe['library_ms'] * 1e3:.1f} us (in turns: "
-        + ", ".join(f"{n} {t * 1e3:.1f}" for n, t in zip(
-            ("kernel", "sdpa", "sdpa", "kernel"), moe["turns_ms"]))
-        + f"), plain {moe['plain_ms'] * 1e3:.1f} us, bound {moe['bound_ms'] * 1e3:.2f} us "
-        f"({moe['bound_by']}: {moe['flops'] / 1e9:.2f} GFLOP, {moe['bytes'] / 1e6:.1f} MB; "
-        f"the bytes alone {moe['bytes_ms'] * 1e3:.2f} us); host enqueue "
-        f"{moe['host_ms'] * 1e3:.1f} us (its input checks {moe['host_check_ms'] * 1e3:.1f} us); "
+    shapes = {"moe": (SERVE_MOE, flash_timing(dev, FLASH_MOE)),
+              "mla": (SERVE_MLA, flash_timing(dev, FLASH_MLA, dv=FLASH_MLA_DV)),
+              "vl": (SERVE_VL, flash_timing(dev, FLASH_VL))}
+    for arch, t in shapes.values():
+        log_flash_shape(arch, t)
+    return {**instances["bfloat16"], "instances": instances,
+            **{key: t for key, (_, t) in shapes.items()}}
+
+
+def log_flash_shape(arch: str, t: dict) -> None:
+    """One model shape's flash timing (flash_timing) as one line."""
+    case = t["case"]
+    what = "ops.flash_attention (pads, kernel) and the crop's copy" if t["dv"] != case[5] \
+        else "kernel"
+    log(f"flash[{arch}]: {case} v {t['dv']}: {what} {t['ms'] * 1e3:.1f} us/call, "
+        f"scaled_dot_product_attention {t['library_ms'] * 1e3:.1f} us (in turns: "
+        + ", ".join(f"{n} {x * 1e3:.1f}" for n, x in zip(
+            ("kernel", "sdpa", "sdpa", "kernel"), t["turns_ms"]))
+        + f"; max abs diff to the kernel {t['library_max_abs_diff']:.3g}), plain "
+        f"{t['plain_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.2f} us "
+        f"({t['bound_by']}: {t['flops'] / 1e9:.2f} GFLOP, {t['bytes'] / 1e6:.1f} MB; "
+        f"the bytes alone {t['bytes_ms'] * 1e3:.2f} us); host enqueue "
+        f"{t['host_ms'] * 1e3:.1f} us (its input checks {t['host_check_ms'] * 1e3:.1f} us); "
         "device by kernel (torch.profiler, us/launch): "
-        + (", ".join(f"{n} {m * 1e3:.1f}" for n, m in moe["device_ms"].items())
+        + (", ".join(f"{n} {m * 1e3:.1f}" for n, m in t["device_ms"].items())
            or "not measured (no device time recorded)")
         + "; scaled_dot_product_attention's: "
-        + (", ".join(f"{n} {m * 1e3:.1f}" for n, m in moe["library_device_ms"].items())
+        + (", ".join(f"{n} {m * 1e3:.1f}" for n, m in t["library_device_ms"].items())
            or "not measured (no device time recorded)"))
-    return {**instances["bfloat16"], "instances": instances, "moe": moe}
 
 
 _FLASH_INSTANCE = re.compile(r"flash_fwd_(wgmma_bf16|simt_f32)ILi(\d+)E")
@@ -995,36 +1059,50 @@ def flash_build_facts() -> dict:
     return facts
 
 
-def flash_timing(dev, case) -> dict:
+def flash_timing(dev, case, dv=None) -> dict:
     """One instance at ``case`` (causal, no window or cap): CUDA-event ms per
     call in turns with scaled_dot_product_attention (kernel, SDPA, SDPA,
     kernel), the plain version's ms, host enqueue ms, device ms per launch of
     the kernel and of SDPA's kernels (torch.profiler) and the bound.  Where
     the host enqueue exceeds the device time, the CUDA-event time is the
-    host's, and the device times are the ones to compare."""
+    host's, and the device times are the ones to compare.  With a v head dim
+    ``dv`` below q/k's (MLA), the call timed is what the model runs:
+    ops.flash_attention (its pads, the kernel) and the copy that crops the
+    output, each a kernel of its own in the device times; the bound counts
+    the unpadded work."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
     from repro_torch.kernels.ref import flash_attention_ref
 
-    q, k, v = _flash_inputs(dev, case, SEED)
-    launch = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+    q, k, v = _flash_inputs(dev, case, SEED, dv)
+    dv = v.shape[-1]
+    if dv == case[5]:
+        launch = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+        checked = (q, k, v)
+    else:
+        launch = lambda: ops.flash_attention(q, k, v, causal=True).contiguous()  # noqa: E731
+        width = ops.padded_head_dim(case[5])
+        checked = tuple(F.pad(t, (0, width - t.shape[-1])) for t in (q, k, v))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # (B, heads, S, hd)
     library = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=True, enable_gqa=True)
     lib_diff = float((library().transpose(1, 2).float() - launch().float()).abs().max())
     turns = [cuda_ms(fn, iters=20) for fn in (launch, library, library, launch)]
     return {
+        "case": case,
+        "dv": dv,
         "ms": (turns[0] + turns[3]) / 2,
         "library_ms": (turns[1] + turns[2]) / 2,
         "turns_ms": turns,
         "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True), iters=5),
         "host_ms": host_ms(launch, iters=20),
-        "host_check_ms": host_ms(lambda: fa._check(q, k, v), iters=200),  # part of host_ms
+        "host_check_ms": host_ms(lambda: fa._check(*checked), iters=200),  # part of host_ms
         "device_ms": device_ms_by_kernel(launch, iters=5),
         "library_device_ms": device_ms_by_kernel(library, iters=5),
         "library_max_abs_diff": lib_diff,
-        **flash_bound(case),
+        **flash_bound(case, dv),
     }
 
 
@@ -1232,7 +1310,10 @@ def phase_serve(dev, arch: str, kernel: str, bf16_smokes=(), monitor=None) -> di
                else "not measured")
             + "; top kernels (ms): "
             + ", ".join(f"{n} {m:.3f}" for n, m in prof["top"].items()))
-    del cparams, cache, logits
+    del cache, logits
+    vision = vision_prefill(tag, cfg, cparams, dev, max_seq) \
+        if cfg.modality == "vision_stub" else None
+    del cparams
 
     smoke = {f"{a}/{dtype}": smoke_card_vs_cpu(dev, a, dtype, tag)
              for a, dtype in [(arch, "float32")] + [(a, "bfloat16") for a in bf16_smokes]}
@@ -1240,13 +1321,48 @@ def phase_serve(dev, arch: str, kernel: str, bf16_smokes=(), monitor=None) -> di
             "tok_per_s": out["tok_per_s"], "peak_bytes": peak, "param_bytes": param_bytes,
             "prefill_idle_share": prof_prefill["idle_share"],
             "decode_idle_share": prof_decode["idle_share"], "smoke": smoke,
-            "prefill_by_kernel": prof_prefill["by_kernel"]}
+            "prefill_by_kernel": prof_prefill["by_kernel"], "vision": vision}
+
+
+def vision_prefill(tag: str, cfg, cparams, dev, max_seq: int) -> dict:
+    """One prefill wave of a vision-stub model at full width whose batch
+    carries the port's synthetic_batch ``visual_embeds`` (the first quarter
+    of each prompt) and M-RoPE ``pos3``: one flash launch per layer and no
+    other kernel, finite logits, and its time (CUDA events)."""
+    import torch
+
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models import model as M
+
+    batch = synthetic_batch(cfg, SERVE["batch"], SERVE["prompt_len"], seed=SEED, device=dev)
+    del batch["labels"]
+    prefill = lambda: M.prefill(cfg, cparams, batch, max_seq=max_seq)  # noqa: E731
+    zero_counts()
+    logits, _ = prefill()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {name: (cfg.n_layers if name == "flash_attention" else 0) for name in counts}
+    if counts != want:
+        raise AssertionError(f"{tag}: vision prefill launches {counts}, expected {want}")
+    if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
+        raise AssertionError(f"{tag}: non-finite logits from the vision prefill")
+    del logits
+    ms = cuda_ms(prefill, iters=3, warmup=1)
+    n_vis = batch["visual_embeds"].shape[1]
+    log(f"{tag}: vision prefill of {SERVE['batch']} x {SERVE['prompt_len']} tokens, the first "
+        f"{n_vis} of each replaced by visual_embeds, M-RoPE pos3 (t, h, w) up to "
+        f"{tuple(int(x) for x in batch['pos3'].amax(dim=(1, 2)).tolist())}: launches {counts}, "
+        f"logits finite, {ms:.2f} ms per wave (CUDA events)")
+    return {"counts": counts, "ms": ms, "visual_tokens": n_vis}
 
 
 def smoke_card_vs_cpu(dev, arch: str, dtype: str, tag: str) -> dict:
-    """The smoke model of ``arch`` in ``dtype``, prefill of 40 tokens and 4
-    decode steps, on the card (kernels) and on the CPU (plain versions), from
-    the same weights, the logits held together at SMOKE_TOL[dtype].
+    """The smoke model of ``arch`` (with SMOKE_REPLACE's changes) in
+    ``dtype``, prefill of 40 tokens and 4 decode steps, on the card
+    (kernels) and on the CPU (plain versions), from the same weights, the
+    logits held together at SMOKE_TOL[dtype].  A vision-stub model's prefill
+    batch carries seeded ``visual_embeds`` over its first quarter and the
+    M-RoPE ``pos3`` of data.pipeline.make_pos3.
 
     In bf16 every attention call of the card run is held at FLASH_TOL
     against the plain version on its own inputs, and the card runs once more
@@ -1268,18 +1384,27 @@ def smoke_card_vs_cpu(dev, arch: str, dtype: str, tag: str) -> dict:
     import torch
 
     from repro_torch import configs
+    from repro_torch.data.pipeline import make_pos3, vis_tokens
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.models import model as M
     from repro_torch.models import moe as MOE
     from repro_torch.models.common import MOE as MOE_MLP, init_params
 
-    smoke = dataclasses.replace(configs.smoke(arch), compute_dtype=getattr(torch, dtype))
+    smoke = dataclasses.replace(configs.smoke(arch), compute_dtype=getattr(torch, dtype),
+                                **SMOKE_REPLACE.get(arch, {}))
+    name = smoke.name + "".join(f" {k}={v}" for k, v in SMOKE_REPLACE.get(arch, {}).items())
     p_cpu = M.compute_params(smoke, init_params(smoke, SEED, "cpu"))
     p_dev = {**{k: v.to(dev) for k, v in p_cpu.items() if k != "layers"},
              "layers": [{k: v.to(dev) for k, v in layer.items()} for layer in p_cpu["layers"]]}
     rng = np.random.default_rng(SEED)
     toks = torch.from_numpy(rng.integers(0, smoke.vocab, (2, 44)).astype(np.int32))
+    extra = {}
+    if smoke.modality == "vision_stub":
+        n_vis = vis_tokens(40)
+        extra = {"visual_embeds": torch.from_numpy(
+                     rng.normal(0, 1, (2, n_vis, smoke.d_model)).astype(np.float32)),
+                 "pos3": torch.from_numpy(make_pos3(2, 40, n_vis))}
 
     route, routes, overridden = MOE._route, [], []
 
@@ -1302,7 +1427,8 @@ def smoke_card_vs_cpu(dev, arch: str, dtype: str, tag: str) -> dict:
         MOE._route = router
         try:
             t = toks.to(p["embed"].device)
-            logits, cache = M.prefill(smoke, p, {"tokens": t[:, :40]}, max_seq=44)
+            batch = {"tokens": t[:, :40], **{k: x.to(t.device) for k, x in extra.items()}}
+            logits, cache = M.prefill(smoke, p, batch, max_seq=44)
             outs = [logits[..., :smoke.vocab].float().cpu()]
             for i in range(40, 44):
                 logits, cache = M.decode_step(smoke, p, cache, t[:, i:i + 1])
@@ -1317,7 +1443,7 @@ def smoke_card_vs_cpu(dev, arch: str, dtype: str, tag: str) -> dict:
 
     def recorded(q, k, v, **kw):
         got = kernel(q, k, v, **kw)
-        calls.check(f"{tag}: {smoke.name} attention {tuple(q.shape)}", got,
+        calls.check(f"{tag}: {name} attention {tuple(q.shape)}", got,
                     flash_attention_ref(q, k, v, **kw), FLASH_TOL[dtype])
         return got
 
@@ -1335,14 +1461,14 @@ def smoke_card_vs_cpu(dev, arch: str, dtype: str, tag: str) -> dict:
                    routing_overridden=sum(overridden))
         free = logits_of(p_cpu)
         out.update(unpinned_max_abs_diff=float((card - free).abs().max()))
-        log(f"{tag}: {dtype} smoke {smoke.name}: the CPU run replays the card's "
+        log(f"{tag}: {dtype} smoke {name}: the CPU run replays the card's "
             f"{out['routing_choices']} top-k choices, {out['routing_overridden']} of which "
             f"differ from its own; without the replay card vs CPU max abs diff "
             f"{out['unpinned_max_abs_diff']:.3g}")
     if dtype == "float32":
         np.testing.assert_allclose(card.numpy(), cpu.numpy(), **tol,
-                                   err_msg=f"{tag}: float32 smoke {smoke.name} logits, card vs CPU")
-        log(f"{tag}: float32 smoke {smoke.name} prefill(40) + 4 decode steps, card (kernel) vs "
+                                   err_msg=f"{tag}: float32 smoke {name} logits, card vs CPU")
+        log(f"{tag}: float32 smoke {name} prefill(40) + 4 decode steps, card (kernel) vs "
             f"CPU (plain): logits within rtol {tol['rtol']} / atol {tol['atol']}, max abs diff "
             f"{err:.3g}")
         return out
@@ -1369,17 +1495,17 @@ def smoke_card_vs_cpu(dev, arch: str, dtype: str, tag: str) -> dict:
         base_err = max(base_err, ulp_err)
     if out["base_beyond_tol"] == 0 and not moe:
         np.testing.assert_allclose(card.numpy(), cpu.numpy(), **tol,
-                                   err_msg=f"{tag}: bf16 smoke {smoke.name} logits, card vs CPU")
+                                   err_msg=f"{tag}: bf16 smoke {name} logits, card vs CPU")
         held = f"elementwise within rtol {tol['rtol']} / atol {tol['atol']}"
     elif err > base_err + tol["atol"]:
-        raise AssertionError(f"{tag}: bf16 smoke {smoke.name}: card (kernel) vs CPU max abs "
+        raise AssertionError(f"{tag}: bf16 smoke {name}: card (kernel) vs CPU max abs "
                              f"diff {err:.3g} exceeds the baseline {base_err:.3g} by more "
                              f"than {tol['atol']}")
     else:
         held = (f"within the baseline + {tol['atol']} (the card's plain-attention run"
                 + (f", or the CPU's with attention one ulp off: {ulp_err:.3g}" if moe else "")
                 + ")")
-    log(f"{tag}: bf16 smoke {smoke.name} prefill(40) + 4 decode steps, card (kernel) vs CPU "
+    log(f"{tag}: bf16 smoke {name} prefill(40) + 4 decode steps, card (kernel) vs CPU "
         f"(plain): logits {held}: max abs diff {err:.3g}, {out['beyond_tol']} of {cpu.numel()} "
         f"beyond the elementwise tolerance; card with plain attention vs CPU "
         f"{out['base_max_abs_diff']:.3g}, "
@@ -1605,6 +1731,150 @@ def phase_serve_moe(dev) -> dict:
             "moe_block_classes": block}
 
 
+# ------------------------------------------------- serve, MLA and M-RoPE
+def load_example(path: str):
+    """A script under examples/ as a module (its main() is not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(Path(path).stem, ROOT / path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_serve_vl(dev) -> dict:
+    """Main path I: the serve of examples/serve_monitored_torch.py (the
+    port's twin of examples/serve_monitored.py) on SERVE_VL at its published
+    width with path C's traffic, under a monitor with the example's
+    settings, its per-phase profile printed; then a vision prefill and the
+    smoke models card vs CPU (phase_serve).  First the example itself, as a
+    user runs it on cuda:0 (its smoke traffic), outside the path's count."""
+    import io
+
+    from repro_torch.trace.monitor import ChimbukoMonitor
+
+    tag = f"serve_vl[{SERVE_VL}]"
+    example = load_example(SERVE_VL_EXAMPLE)
+    printed = io.StringIO()
+    argv = sys.argv
+    sys.argv = [SERVE_VL_EXAMPLE, "--device", str(dev)]
+    try:
+        with contextlib.redirect_stdout(printed):
+            example.main()
+    finally:
+        sys.argv = argv
+    first = printed.getvalue().splitlines()[:2]
+    want = (f"requests={example.TRAFFIC['n_requests']} "
+            f"tokens={example.TRAFFIC['n_requests'] * example.TRAFFIC['max_new']}")
+    if len(first) < 2 or not first[1].startswith(want):
+        raise AssertionError(f"{tag}: {SERVE_VL_EXAMPLE} printed {first}")
+    log(f"{tag}: {SERVE_VL_EXAMPLE} --device {dev} (smoke, {example.TRAFFIC['n_requests']} "
+        f"requests): {first[1]}")
+    mon = ChimbukoMonitor(**example.MONITOR)
+    try:
+        served = phase_serve(dev, SERVE_VL, "flash_attention", bf16_smokes=(SERVE_VL,),
+                             monitor=mon)
+        profile = example.profile(mon)
+    finally:
+        mon.close()
+    log(f"{tag}: the example's monitor {example.MONITOR}; its per-phase profile (us): "
+        + ("; ".join(line.strip() for line in profile) or
+           "no line, as the JAX example prints none (ROADMAP.md section 3)"))
+    return {**served, "profile": profile}
+
+
+def phase_train_audio(dev) -> dict:
+    """Main path J: repro_torch.launch.train.train on TRAIN_AUDIO's arch
+    (the audio stub: frame embeddings in, a bidirectional encoder) at its
+    published width on the SyntheticStream's embeds with path E's options,
+    monitored: losses, step times, tokens/s, peak memory, no port kernel
+    launched (training runs the plain attention, as JAX does); one traced
+    step; one float32 step cut to 2 layers, card vs CPU."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataShard, SyntheticStream, to_device
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch import train as TR
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch, steps = TRAIN_AUDIO["arch"], TRAIN_AUDIO["steps"]
+    B, S = TRAIN_AUDIO["global_batch"], TRAIN_AUDIO["seq"]
+    tag = f"train_audio[{arch}]"
+    cfg = configs.get_config(arch)
+    opts = train_opts()
+    record = []
+    real = _timed_train_steps(TR, record)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_counts()
+        try:
+            out = TR.train(arch=arch, smoke=False, steps=steps, global_batch=B, seq=S,
+                           monitor_dir=tmp, seed=0, opts=opts, log_every=1, device=dev)
+        finally:
+            TR.build_train_step = real
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+    hist, mon = out["history"], out["monitor"]
+    losses = [h["loss"] for h in hist]
+    gnorms = [float(m["grad_norm"]) for _, _, m in record]
+    event_ms = [a.elapsed_time(b) for a, b, _ in record]
+    host_ms = [h["time_s"] * 1e3 for h in hist]
+    if [h["step"] for h in hist] != list(range(steps)) or len(record) != steps:
+        raise AssertionError(f"{tag}: steps {[h['step'] for h in hist]}, {len(record)} timed")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"{tag}: non-finite loss or grad norm: {losses} {gnorms}")
+    ln_v = math.log(cfg.vocab)
+    if abs(losses[0] - ln_v) > TRAIN_LOSS0_ATOL:
+        raise AssertionError(f"{tag}: step-0 loss {losses[0]:.4f} is not within "
+                             f"{TRAIN_LOSS0_ATOL} of ln V = {ln_v:.4f}")
+    if any(counts.values()):
+        raise AssertionError(f"{tag}: port kernels launched on the train path: {counts}")
+    if mon["frames"] != steps:
+        raise AssertionError(f"{tag}: monitor saw {mon['frames']} frames for {steps} steps")
+    later_host = float(np.mean(host_ms[1:]))
+    later_event = float(np.mean(event_ms[1:]))
+    tok_per_s = B * S / (later_host / 1e3)
+    log(f"{tag}: full width, {cfg.n_params():,} parameters ({cfg.n_layers} non-causal layers, "
+        f"d {cfg.d_model}, hd {cfg.head_dim}); global batch {B} x seq {S} frame embeddings, "
+        f"remat {opts.remat}, ce_chunk {opts.ce_chunk}, {steps} steps")
+    for i in range(steps):
+        log(f"{tag}: step {i} loss {losses[i]:.4f} grad_norm {gnorms[i]:.4f} host "
+            f"{host_ms[i]:.1f} ms, CUDA events {event_ms[i]:.1f} ms")
+    log(f"{tag}: steps 1-{steps - 1}: host {later_host:.1f} ms, CUDA events "
+        f"{later_event:.1f} ms per step, {tok_per_s:.0f} tokens/s (host); step-0 loss "
+        f"{losses[0]:.4f} vs ln V {ln_v:.4f}; peak memory {peak / 1e9:.2f} GB; port kernel "
+        f"launches {counts} (expected 0: training runs the plain versions); monitor frames "
+        f"{mon['frames']} events {mon['events']}")
+
+    del out, record
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_fn = TS.build_train_step(cfg, TS.make_shard_ctx(cfg, None, B, opts), opts)
+    holder = {"state": TS.make_train_state(cfg, 0, device=dev)}
+    batch = to_device(SyntheticStream(cfg, DataShard(0, 1, B), S).batch_at(0), dev)
+
+    def one_step():
+        holder["state"], _ = step_fn(holder["state"], batch)
+
+    one_step()
+    prof = device_breakdown(one_step)
+    del holder, batch, step_fn
+    log(f"{tag}: one step traced: {prof['host_ops']} top-level aten ops, wall "
+        f"{prof['wall_ms']:.1f} ms, device busy {prof['device_ms']:.1f} ms, idle share "
+        + (f"{prof['idle_share']:.3f}" if prof["idle_share"] is not None else "not measured")
+        + "; top kernels (ms): " + ", ".join(f"{n} {m:.3f}" for n, m in prof["top"].items()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    parity = train_card_vs_cpu(dev, tag, arch)
+    return {"counts": counts, "losses": losses, "grad_norms": gnorms, "step_ms": later_event,
+            "step_host_ms": later_host, "tok_per_s": tok_per_s, "peak_bytes": peak,
+            "idle_share": prof["idle_share"], "card_vs_cpu": parity}
+
+
 # ---------------------------------------------------------------- refusals
 def phase_refusals(dev) -> None:
     """The card's own limits stay refusals on the card and only there: an F
@@ -1786,26 +2056,32 @@ def phase_train(dev) -> dict:
             "card_vs_cpu": parity, "resume": resume}
 
 
-def train_card_vs_cpu(dev, tag: str) -> dict:
-    """One build_train_step step of gemma-2b at its published width cut to
+def train_card_vs_cpu(dev, tag: str, arch: str = TRAIN["arch"]) -> dict:
+    """One build_train_step step of ``arch`` at its published width cut to
     TRAIN_PARITY's layers, in float32, from one seed's params on the CPU
     copied to the card: loss, grad norm and params after the step, card vs
-    CPU, at TRAIN_PARITY's tolerances."""
+    CPU, at TRAIN_PARITY's tolerances.  An audio-stub model steps on seeded
+    frame embeddings."""
     import torch
 
     from repro_torch import configs
     from repro_torch import tree as T
     from repro_torch.launch import steps as TS
 
-    cfg = dataclasses.replace(configs.get_config(TRAIN["arch"]),
+    cfg = dataclasses.replace(configs.get_config(arch),
                               n_layers=TRAIN_PARITY["n_layers"], compute_dtype=torch.float32)
     Bp, Sp = TRAIN_PARITY["batch"], TRAIN_PARITY["seq"]
     opts = train_opts()
     step_fn = TS.build_train_step(cfg, TS.make_shard_ctx(cfg, None, Bp, opts), opts)
     rng = np.random.default_rng(SEED)
-    tokens = rng.integers(0, cfg.vocab, (Bp, Sp + 1))
-    batch = {"tokens": torch.from_numpy(tokens[:, :-1].astype(np.int32)),
-             "labels": torch.from_numpy(tokens[:, 1:].astype(np.int32))}
+    if cfg.modality == "audio_stub":
+        batch = {"embeds": torch.from_numpy(
+                     rng.normal(0, 1, (Bp, Sp, cfg.d_model)).astype(np.float32)),
+                 "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (Bp, Sp)).astype(np.int32))}
+    else:
+        tokens = rng.integers(0, cfg.vocab, (Bp, Sp + 1))
+        batch = {"tokens": torch.from_numpy(tokens[:, :-1].astype(np.int32)),
+                 "labels": torch.from_numpy(tokens[:, 1:].astype(np.int32))}
     cpu_state = TS.make_train_state(cfg, SEED, device="cpu")
     before = {name: t.clone() for name, t in T.paths(cpu_state["params"])}
     dev_state = T.map(lambda t: t.to(dev, copy=True), cpu_state)
@@ -2247,16 +2523,21 @@ def main() -> int:
                          bf16_smokes=("gemma-2b", "gemma2-2b"))
     served_ssm = phase_serve(dev, "falcon-mamba-7b", "mamba_scan")
     served_moe = phase_serve_moe(dev)
+    served_mla = phase_serve(dev, SERVE_MLA, "flash_attention", bf16_smokes=(SERVE_MLA,))
+    served_vl = phase_serve_vl(dev)
     trained = phase_train(dev)
     trained_socket = phase_train_socket(dev, trained)
+    trained_audio = phase_train_audio(dev)
 
     paths = {"trace": trace["counts"], "width": width["counts"], "serve": served["counts"],
              "serve_ssm": served_ssm["counts"], "serve_moe": served_moe["counts"],
-             "train": trained["counts"],
-             "train_socket": trained_socket["counts"]}
+             "serve_mla": served_mla["counts"], "serve_vl": served_vl["counts"],
+             "train": trained["counts"], "train_socket": trained_socket["counts"],
+             "train_audio": trained_audio["counts"]}
     needs = {"trace": "moments_and_labels", "width": "moments_and_labels",
              "serve": "flash_attention", "serve_ssm": "mamba_scan",
-             "serve_moe": "flash_attention"}
+             "serve_moe": "flash_attention", "serve_mla": "flash_attention",
+             "serve_vl": "flash_attention"}
     for path, name in needs.items():
         if paths[path][name] <= 0:
             raise AssertionError(f"main path {path} never launched {name}: {paths[path]}")
@@ -2267,6 +2548,15 @@ def main() -> int:
     def serve_numbers(run):
         return {k: run[k] for k in ("prefill_ms", "decode_ms", "tok_per_s", "peak_bytes",
                                     "param_bytes", "prefill_idle_share", "decode_idle_share")}
+
+    def shape_numbers(t):
+        case = t["case"]
+        return {**dict(zip(("B", "Sq", "Sk", "H", "KV", "hd", "causal", "window", "cap",
+                            "dtype"), case)), "dv": t["dv"],
+                **{key: t[key] for key in (
+                    "ms", "turns_ms", "device_ms", "host_ms", "host_check_ms", "plain_ms",
+                    "bound_ms", "bound_by", "ops_ms", "bytes_ms", "library_ms",
+                    "library_device_ms")}}
 
     kernels = [{
         "name": "moments_and_labels",
@@ -2318,17 +2608,16 @@ def main() -> int:
             for dtype, inst in flash["instances"].items()},
         "serve": serve_numbers(served),
         "smoke": served["smoke"],
-        "moe_shape": {
-            **dict(zip(("B", "Sq", "Sk", "H", "KV", "hd", "causal", "window", "cap", "dtype"),
-                       FLASH_MOE)),
-            **{key: flash["moe"][key] for key in (
-                "ms", "turns_ms", "device_ms", "host_ms", "host_check_ms", "plain_ms",
-                "bound_ms", "bound_by", "ops_ms", "bytes_ms", "library_ms",
-                "library_device_ms")}},
+        "moe_shape": shape_numbers(flash["moe"]),
+        "mla_shape": shape_numbers(flash["mla"]),
+        "vl_shape": shape_numbers(flash["vl"]),
         "serve_moe": {**serve_numbers(served_moe), "smoke": served_moe["smoke"],
                       "viz": served_moe["viz"], "prefill_classes": served_moe["prefill_classes"],
                       "moe_block_ms": served_moe["moe_block_ms"],
                       "moe_block_classes": served_moe["moe_block_classes"]},
+        "serve_mla": {**serve_numbers(served_mla), "smoke": served_mla["smoke"]},
+        "serve_vl": {**serve_numbers(served_vl), "smoke": served_vl["smoke"],
+                     "vision_prefill": served_vl["vision"]},
     }, {
         "name": "mamba_scan",
         "route": "cuda",

@@ -2,9 +2,8 @@
 
 Options of the copied modules whose backing module is not ported
 (meshes, expert and sequence parallelism: item 11; the dry run: item 12)
-and the model parts still missing (MLA, M-RoPE and the modality stubs:
-item 9) raise it when asked for, instead of importing ``repro`` or
-skipping the option quietly.
+raise it when asked for, instead of importing ``repro`` or skipping the
+option quietly.
 """
 from __future__ import annotations
 

@@ -85,20 +85,29 @@ def flash_attention(
     causal: bool = True, window: int = 0, cap: float = 0.0,
     scale: Optional[float] = None, kv_len: Optional[int] = None,
 ) -> torch.Tensor:
-    """Kernel-backed attention; q (B,Sq,H,hd), k/v (B,Sk,KV,hd) -> (B,Sq,H,hd).
+    """Kernel-backed attention; q/k (B,S,heads,hd), v (B,Sk,KV,dv) with
+    dv <= hd (MLA: qk 96, v 64) -> (B,Sq,H,dv); ``scale`` defaults to
+    1/sqrt(hd).
 
-    The head dim is zero-padded up to one the kernel is built for (the
-    JAX wrapper pads to the TPU's 128 lanes): padded q/k columns leave the
-    scores unchanged and padded v columns are cropped from the output.
+    q, k and v are zero-padded up to one head dim the kernel is built for
+    (the JAX wrapper pads to the TPU's 128 lanes), v to the same width as q
+    and k, since the kernel takes one head dim for all three: padded q/k
+    columns leave the scores unchanged and padded v columns are cropped
+    from the output.
     """
-    hd = q.shape[-1]
+    hd, dv = q.shape[-1], v.shape[-1]
+    if k.shape[-1] != hd or dv > hd:
+        raise ValueError(f"k must share q's head dim {hd} and v's may not exceed it, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    pad = padded_head_dim(hd) - hd
-    if pad:
-        q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
+    width = padded_head_dim(hd)
+    if width != hd:
+        q, k = (F.pad(t, (0, width - hd)) for t in (q, k))
+    if width != dv:
+        v = F.pad(v, (0, width - dv))
     out = _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
                               window=window, cap=cap, scale=scale, kv_len=kv_len)
-    return out[..., :hd] if pad else out
+    return out[..., :dv] if width != dv else out
 
 
 # ----------------------------------------------------------------- mamba scan

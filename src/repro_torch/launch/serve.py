@@ -16,6 +16,7 @@ Usage (on a CUDA card; ``--device cpu`` runs the plain versions):
   python -m repro_torch.launch.serve --arch falcon-mamba-7b --full --prompt-len 1024 --max-new 32
   python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --full --prompt-len 1024 \
       --max-new 32
+  python -m repro_torch.launch.serve --arch minicpm3-4b --full --prompt-len 1024 --max-new 32
 A monitor built with ``ChimbukoMonitor(viz_serve=PORT)`` and passed as
 ``monitor=`` serves the run live (HTTP views, ``/trace``, WebSocket frames).
 """

@@ -19,26 +19,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from .._unported import unported as _unported
 from ..device import resolve
 
 # Mixer kinds: how the sequence dimension is mixed.
 FULL, SWA, MLA, MAMBA = "full", "swa", "mla", "mamba"
 # MLP kinds.
 DENSE, MOE, NONE = "dense", "moe", "none"
-
-# What the port does not cover yet, with its ROADMAP.md queue 1 item (all
-# item 9): raised as NotImplementedError wherever it is asked for.
-UNPORTED = {
-    MLA: ("the MLA mixer", 9),
-    "mrope": ("M-RoPE positions", 9),
-    "audio_stub": ("the audio-stub modality", 9),
-    "vision_stub": ("the vision-stub modality", 9),
-}
-
-
-def unported(kind: str) -> NotImplementedError:
-    return _unported(*UNPORTED[kind])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,11 +195,25 @@ DT_MIN, DT_MAX = 1e-3, 1e-1
 def layer_param_shapes(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Tuple[Tuple[int, ...], str]]:
     """name -> (per-layer shape, init kind) of one period position; the
     order is JAX's dict order, which is also the draw order."""
-    if spec.mixer == MLA:
-        raise unported(MLA)
     d = cfg.d_model
     out: Dict[str, Tuple[Tuple[int, ...], str]] = {"ln1": ((d,), "ones")}
-    if spec.mixer == MAMBA:
+    if spec.mixer in (FULL, SWA):
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        out["wq"] = ((d, H * hd), "dense")
+        out["wk"] = ((d, KV * hd), "dense")
+        out["wv"] = ((d, KV * hd), "dense")
+        out["wo"] = ((H * hd, d), "dense")
+    elif spec.mixer == MLA:
+        H, qh = cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim
+        out["wdq"] = ((d, cfg.q_lora_rank), "dense")
+        out["q_ln"] = ((cfg.q_lora_rank,), "ones")
+        out["wuq"] = ((cfg.q_lora_rank, H * qh), "dense")
+        out["wdkv"] = ((d, cfg.kv_lora_rank + cfg.qk_rope_dim), "dense")
+        out["kv_ln"] = ((cfg.kv_lora_rank,), "ones")
+        out["wuk"] = ((cfg.kv_lora_rank, H * cfg.qk_nope_dim), "dense")
+        out["wuv"] = ((cfg.kv_lora_rank, H * cfg.v_head_dim), "dense")
+        out["wo"] = ((H * cfg.v_head_dim, d), "dense")
+    elif spec.mixer == MAMBA:
         di, st, dc, dr = cfg.d_inner, cfg.ssm_d_state, cfg.ssm_d_conv, cfg.dt_rank
         out["in_proj"] = ((d, 2 * di), "dense")
         out["conv_w"] = ((dc, di), "dense")
@@ -224,12 +224,6 @@ def layer_param_shapes(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Tuple[Tup
         out["A_log"] = ((di, st), "a_log")
         out["D"] = ((di,), "ones")
         out["out_proj"] = ((di, d), "dense")
-    else:
-        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        out["wq"] = ((d, H * hd), "dense")
-        out["wk"] = ((d, KV * hd), "dense")
-        out["wv"] = ((d, KV * hd), "dense")
-        out["wo"] = ((H * hd, d), "dense")
     if spec.mlp == DENSE:
         f = cfg.d_ff
         out["ln2"] = ((d,), "ones")

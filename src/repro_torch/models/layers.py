@@ -1,4 +1,4 @@
-"""Shared neural layers (port of ``repro.models.layers``): norms, RoPE, attention, MLP.
+"""Shared neural layers (port of ``repro.models.layers``): norms, RoPE/M-RoPE, attention, MLP.
 
 Attention supports GQA/MQA grouping, causal and bidirectional,
 sliding-window and logit softcapping.  Layouts follow the JAX package:
@@ -11,10 +11,10 @@ q (B,Sq,H,hd), k/v (B,Sk,KV,hd).  Two plain paths, as in JAX:
 The prefill path of ``models.model`` runs the hand-written flash kernel
 (``kernels.ops.flash_attention``) instead; these functions are what JAX
 computes in XLA and what the port's forward and decode paths run.
-M-RoPE waits for the qwen2-vl slice (ROADMAP.md queue 1, item 9).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple, Union
 
@@ -57,9 +57,37 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
+def mrope_cos_sin(
+    pos3: torch.Tensor, dim: int, sections: Tuple[int, int, int], theta: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL multimodal RoPE: pos3 (3, B, S) -> cos/sin (B, S, dim//2),
+    in float32; sections are pair counts per (temporal, height, width)
+    summing to dim//2, and each pair takes its angle from its section's row."""
+    half = dim // 2
+    assert sum(sections) == half, (sections, half)
+    exps = torch.arange(half, dtype=torch.float32, device=pos3.device) / half
+    freqs = 1.0 / (theta ** exps)
+    ang = pos3.float()[..., None] * freqs  # (3, B, S, half)
+    sec_id = _section_ids(tuple(sections), pos3.device)
+    ang = torch.gather(ang, 0, sec_id.expand(1, *ang.shape[1:]))[0]
+    return torch.cos(ang), torch.sin(ang)
+
+
+@functools.lru_cache(maxsize=None)
+def _section_ids(sections: Tuple[int, int, int], device: torch.device) -> torch.Tensor:
+    """Each pair's row of pos3, made once per device: a host-to-device copy
+    per decode step would make the host wait on the card each time."""
+    return torch.repeat_interleave(torch.arange(3), torch.tensor(sections)).to(device)
+
+
 def text_positions(batch: int, seq: int, offset: int = 0, device=None) -> torch.Tensor:
     return (torch.arange(seq, dtype=torch.int32, device=device)[None, :]
             + torch.zeros((batch, 1), dtype=torch.int32, device=device) + offset)
+
+
+def mrope_text_positions(batch: int, seq: int, offset: int = 0, device=None) -> torch.Tensor:
+    """Degenerate (t=h=w) M-RoPE positions (3, B, S) for text-only streams."""
+    return text_positions(batch, seq, offset, device=device)[None].expand(3, batch, seq)
 
 
 # -------------------------------------------------------------- attention

@@ -5,14 +5,15 @@ Modes:
                full-sequence pass (attention through ``layers.attention``,
                Mamba through ``mamba.mamba_sequence``); the training path
   prefill      sequence pass that also builds the decode cache; its
-               attention runs the hand-written flash kernel and its Mamba
-               layers the hand-written scan kernel (``kernels.ops``)
-  decode_step  single-token step against the cache
+               attention (MLA's too, v head dim and all) runs the
+               hand-written flash kernel and its Mamba layers the
+               hand-written scan kernel (``kernels.ops``)
+  decode_step  single-token step against the cache (MLA: absorbed-matrix
+               attention on the compressed latent cache)
 
-The subset of the JAX model ported so far: FULL, SWA and MAMBA mixers, the
-dense and MoE MLPs (or none), ``sandwich_norm``, ``emb_scale`` and both
-softcaps.  MLA, M-RoPE and the modality stubs raise ``NotImplementedError``
-naming their ROADMAP.md item.
+Every mixer (FULL, SWA, MLA, MAMBA), the dense and MoE MLPs (or none),
+RoPE and M-RoPE positions, the text, audio-stub and vision-stub
+embeddings, ``sandwich_norm``, ``emb_scale`` and both softcaps.
 
 Differences of form, not of values, from the JAX package:
   * ``lax.scan`` over periods is a Python loop over layers; parameters and
@@ -42,7 +43,7 @@ from ..device import resolve
 from ..kernels import ops
 from . import layers as L
 from . import mamba as MB
-from .common import MAMBA, MLA, MOE, NONE, SWA, LayerSpec, ModelConfig, unported
+from .common import MAMBA, MLA, MOE, NONE, SWA, LayerSpec, ModelConfig
 from .moe import moe_block
 
 
@@ -54,31 +55,26 @@ class ShardCtx:
     remat: str = "none"  # none | block
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not cover yet; every path starts here
-    (embed_tokens, init_cache)."""
-    if cfg.modality != "text":
-        raise unported(cfg.modality)
-    if cfg.pos == "mrope":
-        raise unported("mrope")
-    for spec in cfg.layout:
-        if spec.mixer == MLA:
-            raise unported(MLA)
-
-
 # ---------------------------------------------------------------- embedding
 def embed_tokens(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    _check_supported(cfg)
     if params["embed"].dtype != cfg.compute_dtype:
         raise ValueError(f"weights are {params['embed'].dtype}, the config computes in "
                          f"{cfg.compute_dtype}: pass compute_params(cfg, params)")
-    return _embed(cfg, params["embed"], batch["tokens"])
+    return _embed(cfg, params["embed"], batch)
 
 
-def _embed(cfg: ModelConfig, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Rows of ``table`` cast to the compute dtype (a no-op for compute
-    weights), scaled as gemma scales them."""
-    x = F.embedding(tokens, table).to(cfg.compute_dtype)
+def _embed(cfg: ModelConfig, table: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The batch's input rows in the compute dtype, scaled as gemma scales
+    them: the audio stub's ``embeds``, else rows of ``table`` (cast: a no-op
+    for compute weights) whose first ``n_vis`` the vision stub replaces
+    with ``visual_embeds``."""
+    if cfg.modality == "audio_stub":
+        x = batch["embeds"].to(cfg.compute_dtype)
+    else:
+        x = F.embedding(batch["tokens"], table).to(cfg.compute_dtype)
+        if cfg.modality == "vision_stub" and "visual_embeds" in batch:
+            vis = batch["visual_embeds"].to(cfg.compute_dtype)
+            x = torch.cat([vis, x[:, vis.shape[1]:]], dim=1)
     if cfg.emb_scale:
         # The scale is rounded to the compute dtype before the multiply, as
         # in JAX: in bf16, sqrt(2048) = 45.2548 becomes 45.25.
@@ -86,11 +82,20 @@ def _embed(cfg: ModelConfig, table: torch.Tensor, tokens: torch.Tensor) -> torch
     return x
 
 
-def _positions(cfg: ModelConfig, B: int, S: int, offset: int = 0, device=None) -> torch.Tensor:
-    return L.text_positions(B, S, offset, device=device)  # M-RoPE: _check_supported
+def _positions(cfg: ModelConfig, batch, B: int, S: int, offset: int = 0,
+               device=None) -> torch.Tensor:
+    """(B, S) positions, or M-RoPE's (3, B, S): the batch's ``pos3`` where
+    it has one, else t = h = w."""
+    if cfg.pos == "mrope":
+        if "pos3" in batch:
+            return batch["pos3"]
+        return L.mrope_text_positions(B, S, offset, device=device)
+    return L.text_positions(B, S, offset, device=device)
 
 
 def _rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor, dim: int):
+    if cfg.pos == "mrope":
+        return L.mrope_cos_sin(positions, dim, cfg.mrope_sections, cfg.rope_theta)
     if cfg.pos == "none":
         return None, None
     return L.rope_cos_sin(positions, dim, cfg.rope_theta)
@@ -177,6 +182,62 @@ def _attn_seq_with_cache(cfg, spec, p, h, cos, sin):
     return out.reshape(B, S, -1) @ p["wo"], (k, v)
 
 
+def _mla_project(cfg, p, h, cos, sin):
+    """MLA's per-head queries, split into q_nope (B,S,H,nope) and the
+    rotated q_rope (B,S,H,rope), the normed latent ckv (B,S,kv_lora_rank)
+    and the rotated rope key k_rope (B,S,1,rope), shared by every head.
+    The rope halves take the first rope/2 columns of cos/sin built for the
+    qk dim, as JAX does: their frequencies are those of a qk-dim-wide RoPE."""
+    B, S, _ = h.shape
+    H, kvr = cfg.n_heads, cfg.kv_lora_rank
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    cq = L.rms_norm(h @ p["wdq"], p["q_ln"], cfg.norm_eps)
+    q = (cq @ p["wuq"]).reshape(B, S, H, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    dkv = h @ p["wdkv"]  # (B,S,kvr+rope)
+    ckv = L.rms_norm(dkv[..., :kvr], p["kv_ln"], cfg.norm_eps)
+    k_rope = dkv[..., kvr:].reshape(B, S, 1, rope)
+    if cos is not None:
+        cr, sr = cos[..., : rope // 2], sin[..., : rope // 2]
+        q_rope, k_rope = L.apply_rope(q_rope, cr, sr), L.apply_rope(k_rope, cr, sr)
+    return q_nope, q_rope, ckv, k_rope
+
+
+def _mla_qkv(cfg, p, h, cos, sin):
+    """MLA's q, k (B,S,H,nope+rope) and v (B,S,H,v_head_dim) for sequence
+    attention, and the latent cache's ckv and k_rope."""
+    B, S, _ = h.shape
+    H = cfg.n_heads
+    q_nope, q_rope, ckv, k_rope = _mla_project(cfg, p, h, cos, sin)
+    k_nope = (ckv @ p["wuk"]).reshape(B, S, H, cfg.qk_nope_dim)
+    v = (ckv @ p["wuv"]).reshape(B, S, H, cfg.v_head_dim)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, cfg.qk_rope_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    return q, k, v, ckv, k_rope
+
+
+def _mla_scale(cfg) -> float:
+    return 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+
+
+def _mla_seq(cfg, p, h, cos, sin) -> torch.Tensor:
+    B, S, _ = h.shape
+    q, k, v, _, _ = _mla_qkv(cfg, p, h, cos, sin)
+    out = L.attention(q, k, v, causal=cfg.causal, window=0, cap=cfg.attn_softcap,
+                      scale=_mla_scale(cfg))
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
+def _mla_seq_with_cache(cfg, p, h, cos, sin):
+    """Prefill: returns (attn_out, (ckv, k_rope)), the latent cache; the
+    attention through the flash kernel, v's head dim padded with q's."""
+    B, S, _ = h.shape
+    q, k, v, ckv, k_rope = _mla_qkv(cfg, p, h, cos, sin)
+    out = ops.flash_attention(q, k, v, causal=cfg.causal, window=0, cap=cfg.attn_softcap,
+                              scale=_mla_scale(cfg))
+    return out.reshape(B, S, -1) @ p["wo"], (ckv, k_rope[:, :, 0])
+
+
 def _mlp_apply(cfg, spec, p, h):
     if spec.mlp == MOE:
         return moe_block(p, h, cfg)
@@ -202,6 +263,8 @@ def apply_block(cfg, spec: LayerSpec, p, x, cos, sin) -> torch.Tensor:
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec.mixer == MAMBA:
         h = MB.mamba_sequence(p, h, cfg)
+    elif spec.mixer == MLA:
+        h = _mla_seq(cfg, p, h, cos, sin)
     else:
         h = _attn_seq(cfg, spec, p, h, cos, sin)
     x = _mixer_residual(cfg, x, h, p)
@@ -238,11 +301,11 @@ def _period(cfg: ModelConfig, layers: List[Dict[str, torch.Tensor]], x, cos, sin
     return x
 
 
-def _layers(cfg: ModelConfig, params, x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+def _layers(cfg: ModelConfig, params, x: torch.Tensor, batch, ctx: ShardCtx) -> torch.Tensor:
     if ctx.remat not in ("none", "block"):
         raise ValueError(f"remat must be 'none' or 'block', got {ctx.remat!r}")
     B, S, _ = x.shape
-    cos, sin = _rope_cos_sin(cfg, _positions(cfg, B, S, device=x.device), cfg.qk_dim)
+    cos, sin = _rope_cos_sin(cfg, _positions(cfg, batch, B, S, device=x.device), cfg.qk_dim)
     for layers in _unstacked(params):
         if ctx.remat == "block":  # each period's activations recomputed in backward
             x = checkpoint(_period, cfg, layers, x, cos, sin, ctx.remat, use_reentrant=False)
@@ -252,7 +315,7 @@ def _layers(cfg: ModelConfig, params, x: torch.Tensor, ctx: ShardCtx) -> torch.T
 
 
 def hidden_states(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
-    return _layers(cfg, params, embed_tokens(cfg, params, batch), ctx)
+    return _layers(cfg, params, embed_tokens(cfg, params, batch), batch, ctx)
 
 
 def forward(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
@@ -282,8 +345,7 @@ def loss_and_metrics(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx()
     logits from the final hidden states.  -> (loss, {"loss", "accuracy",
     "tokens"}), float32 scalars on the weights' device.
     """
-    _check_supported(cfg)
-    x = _layers(cfg, params, _embed(cfg, params["embed"], batch["tokens"]), ctx)
+    x = _layers(cfg, params, _embed(cfg, params["embed"], batch), batch, ctx)
     B, S, _ = x.shape
     labels = batch["labels"]
     cs = min(ce_chunk, S)
@@ -304,7 +366,6 @@ def loss_and_metrics(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx()
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> Dict[str, Any]:
     """Zeroed decode cache, stacked over periods per layout position;
     ``device=None`` is the port's default device."""
-    _check_supported(cfg)
     device = resolve(device)
     NP, dt = cfg.n_periods, cfg.compute_dtype
     per_pos: List[Dict[str, torch.Tensor]] = []
@@ -312,6 +373,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> Dict[
         if spec.mixer == MAMBA:
             state = MB.init_mamba_state(cfg, batch, dt, device)
             per_pos.append({k: v.new_zeros((NP, *v.shape)) for k, v in state.items()})
+            continue
+        if spec.mixer == MLA:
+            per_pos.append({
+                "ckv": torch.zeros((NP, batch, max_seq, cfg.kv_lora_rank), dtype=dt,
+                                   device=device),
+                "krope": torch.zeros((NP, batch, max_seq, cfg.qk_rope_dim), dtype=dt,
+                                     device=device),
+            })
             continue
         Sc = min(max_seq, cfg.window) if spec.mixer == SWA else max_seq
         shape = (NP, batch, Sc, cfg.n_kv_heads, cfg.head_dim)
@@ -347,12 +416,38 @@ def _attn_decode(cfg, spec, p, h, cache, pos: int, cos, sin):
     return out @ p["wo"]
 
 
+def _mla_decode(cfg, p, h, cache, pos: int, cos, sin):
+    """Absorbed-matrix MLA decode on the compressed latent cache: W_uk is
+    folded into the query and W_uv applied after the softmax, so no per-head
+    key or value is built.  The new latent and rope key are written into
+    ``cache`` at ``pos`` in place.  The casts follow JAX's: q_eff in the
+    compute dtype, scores, softmax and the latent sum in float32, then W_uv
+    in float32 (JAX promotes bf16 x float32 to float32)."""
+    B = h.shape[0]
+    H, kvr, nope, vh = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.v_head_dim
+    q_nope, q_rope, ckv_new, krope_new = _mla_project(cfg, p, h, cos, sin)
+    cache["ckv"][:, pos] = ckv_new[:, 0]
+    cache["krope"][:, pos] = krope_new[:, 0, 0]
+    ckv, krope = cache["ckv"], cache["krope"]
+    q_eff = torch.einsum("bqhn,khn->bqhk", q_nope, p["wuk"].reshape(kvr, H, nope))
+    scores = torch.einsum("bqhk,bsk->bhqs", q_eff.float(), ckv.float())
+    scores = scores + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), krope.float())
+    scores = L.softcap(scores * _mla_scale(cfg), cfg.attn_softcap)
+    valid = torch.arange(ckv.shape[1], device=h.device) <= pos
+    probs = torch.softmax(torch.where(valid, scores, L.NEG_INF), dim=-1)
+    lat = torch.einsum("bhqs,bsk->bqhk", probs, ckv.float())  # (B,1,H,kvr)
+    out = torch.einsum("bqhk,khv->bqhv", lat, p["wuv"].reshape(kvr, H, vh).float())
+    return out.reshape(B, 1, H * vh).to(h.dtype) @ p["wo"]
+
+
 def decode_block(cfg, spec, p, x, cache, pos: int, cos, sin):
     """One layer of a decode step; ``cache`` (this layer's slice) is
     updated in place."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec.mixer == MAMBA:
         h, _ = MB.mamba_decode(p, h, cache, cfg)
+    elif spec.mixer == MLA:
+        h = _mla_decode(cfg, p, h, cache, pos, cos, sin)
     else:
         h = _attn_decode(cfg, spec, p, h, cache, pos, cos, sin)
     x = _mixer_residual(cfg, x, h, p)
@@ -369,7 +464,10 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
     pos = int(cache["pos"])
     x = embed_tokens(cfg, params, {"tokens": tokens})
     B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    # M-RoPE: t = h = w = pos, as JAX decodes, also after a prefill whose
+    # pos3 continued the text from the visual grid's rows
+    shape = (3, B, 1) if cfg.pos == "mrope" else (B, 1)
+    positions = torch.full(shape, pos, dtype=torch.int32, device=x.device)
     cos, sin = _rope_cos_sin(cfg, positions, cfg.qk_dim)
     for period in range(cfg.n_periods):
         for i, spec in enumerate(cfg.layout):
@@ -381,10 +479,16 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
 
 def _expand_prefill_cache(cfg: ModelConfig, layer_caches, S: int, max_seq: int):
     """Grow prefill caches to max_seq decode slots, ring-aligned for SWA;
-    Mamba states pass through."""
+    Mamba states pass through, MLA latents are zero-padded."""
     out = []
     for spec, c in zip(cfg.layout, layer_caches):
         if spec.mixer == MAMBA:
+            out.append(c)
+            continue
+        if spec.mixer == MLA:  # slots == positions: zero-pad to max_seq
+            pad = max_seq - c["ckv"].shape[2]
+            if pad > 0:
+                c = {name: F.pad(t, (0, 0, 0, pad)) for name, t in c.items()}
             out.append(c)
             continue
         w = c["k"].shape[2]  # stored length after prefill
@@ -421,7 +525,7 @@ def prefill(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx(),
     a second pass (``_mamba_prefill_state``)."""
     x = embed_tokens(cfg, params, batch)
     B, S, _ = x.shape
-    cos, sin = _rope_cos_sin(cfg, _positions(cfg, B, S, device=x.device), cfg.qk_dim)
+    cos, sin = _rope_cos_sin(cfg, _positions(cfg, batch, B, S, device=x.device), cfg.qk_dim)
     per_pos: List[Dict[str, List[torch.Tensor]]] = [{} for _ in cfg.layout]
     for period in range(cfg.n_periods):
         for i, spec in enumerate(cfg.layout):
@@ -429,6 +533,9 @@ def prefill(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx(),
             h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
             if spec.mixer == MAMBA:
                 h, cch = MB.mamba_prefill(p, h, cfg)
+            elif spec.mixer == MLA:
+                h, (ckv, krope) = _mla_seq_with_cache(cfg, p, h, cos, sin)
+                cch = {"ckv": ckv, "krope": krope}
             else:
                 h, (k, v) = _attn_seq_with_cache(cfg, spec, p, h, cos, sin)
                 if spec.mixer == SWA:

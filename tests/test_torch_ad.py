@@ -169,12 +169,16 @@ def _imported_modules(path):
 
 def test_port_sources_import_no_jax_and_nothing_of_repro_at_any_depth():
     """Importing every module (above) misses an import written inside a
-    function body; this reads the sources themselves."""
-    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    function body; this reads the sources themselves: the package, the
+    port's examples (``examples/*_torch.py``) and chip_smoke.py."""
+    package = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    examples = sorted((REPO / "examples").glob("*_torch.py"))
+    files = package + examples + [REPO / "chip_smoke.py"]
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
-    walked = {str(f.relative_to(REPO / "src")).replace("/", ".")[:-3] for f in files[:-1]}
+    assert {f.name for f in examples} >= {"serve_monitored_torch.py", "train_monitored_torch.py"}
+    walked = {str(f.relative_to(REPO / "src")).replace("/", ".")[:-3] for f in package}
     assert {"repro_torch.models.model", "repro_torch.kernels.flash_attention",
             "repro_torch.launch.serve", "repro_torch.trace.monitor",
             "repro_torch.core.ps", "repro_torch.core.provenance",

@@ -120,6 +120,48 @@ def test_flash_ragged_and_head_dims_match_jax_ref(Sq, Sk, hd, causal, window, ca
     _close(got, want, _tol(dtype))
 
 
+@pytest.mark.parametrize("H,KV,hd,dv,dtype", [
+    (4, 4, 24, 16, "float32"),  # the MLA test config: qk 16 + 8, v 16
+    (4, 4, 96, 64, "float32"),  # minicpm3-4b: qk 64 + 32, v 64
+    (8, 8, 96, 64, "bfloat16"),
+    (4, 2, 128, 80, "bfloat16"),  # GQA, v padded from 80 to 128
+    (4, 2, 64, 64, "float32"),  # dv == hd: nothing padded
+])
+def test_flash_ops_takes_a_v_head_dim_below_qk(H, KV, hd, dv, dtype):
+    """MLA's attention (v head dim below q/k's) through ops.flash_attention
+    on the CPU, held against the JAX model's and the port's layers.attention
+    with MLA's scale 1/sqrt(qk); the wrapper pads v to q/k's padded width,
+    since the kernel takes one head dim for q, k and v."""
+    from repro.models import layers as JL
+    from repro_torch.models import layers as TL
+
+    rng = np.random.default_rng(hd + dv + H)
+    arrs = [np.array(jnp.asarray(rng.normal(0, 1, s), JDT[dtype]), np.float32)
+            for s in ((2, 70, H, hd), (2, 70, KV, hd), (2, 70, KV, dv))]
+    scale = 1.0 / np.sqrt(hd - 8)
+    want = np.asarray(JL.attention(*(jnp.asarray(a, JDT[dtype]) for a in arrs), causal=True,
+                                   scale=scale), np.float32)
+    q, k, v = _torch(arrs, dtype)
+    seen, real = [], tfa.flash_attention
+
+    def spy(*qkv, **kw):
+        seen.append(tuple(tuple(t.shape) for t in qkv))
+        return real(*qkv, **kw)
+
+    before, tfa.flash_attention = tfa.flash_attention, spy
+    try:
+        got = tops.flash_attention(q, k, v, causal=True, scale=scale)
+    finally:
+        tfa.flash_attention = before
+    width = tops.padded_head_dim(hd)
+    assert seen == [((2, 70, H, width), (2, 70, KV, width), (2, 70, KV, width))]
+    assert tuple(got.shape) == (2, 70, H, dv) and got.dtype == q.dtype
+    _close(got, want, _tol(dtype))
+    _close(got, TL.attention(q, k, v, causal=True, scale=scale).float().numpy(), _tol(dtype))
+    with pytest.raises(ValueError, match="head dim"):
+        tops.flash_attention(q, k, torch.zeros((2, 70, KV, hd + 1), dtype=q.dtype))
+
+
 def test_flash_row_without_live_keys_follows_the_kernel():
     """kv_len=0 leaves no live key: the Pallas kernel gives 0 (it skips every
     block), and so do the port's kernel and plain version; JAX's

@@ -52,7 +52,7 @@ def test_serve_without_a_device_runs_on_cuda_or_raises():
         tserve.serve(arch="gemma-2b", n_requests=1, batch=1, prompt_len=4, max_new=1)
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "falcon-mamba-7b", "minicpm3-4b", "qwen2-vl-2b"])
 def test_serve_matches_jax_with_carried_weights(arch, monkeypatch):
     """float32 smoke model: identical generated tokens and monitor counts.
 
@@ -61,7 +61,10 @@ def test_serve_matches_jax_with_carried_weights(arch, monkeypatch):
     function gets at most 2 × 6 = 12 samples per run, and the largest
     z-score n samples can reach is (n-1)/sqrt(n) < 6 = alpha for n < 37,
     so both monitors must report 0.  falcon-mamba's prefill runs the scan
-    kernel's plain version here, JAX's the chunked associative scan.
+    kernel's plain version here, JAX's the chunked associative scan;
+    minicpm3's MLA prefill the flash wrapper's plain version and its decode
+    the absorbed latent attention; qwen2-vl's text prompts M-RoPE with
+    t = h = w, as JAX serves them.
     """
     f32 = {"j": dataclasses.replace(jconfigs.smoke(arch), compute_dtype=jnp.float32),
            "t": dataclasses.replace(tconfigs.smoke(arch), compute_dtype=torch.float32)}
@@ -81,6 +84,23 @@ def test_serve_matches_jax_with_carried_weights(arch, monkeypatch):
     assert tmon.registry.names == jmon.registry.names
     jmon.close()
     tmon.close()
+
+
+def test_serve_monitored_example_runs_on_the_cpu():
+    """examples/serve_monitored_torch.py --device cpu: the JAX example's
+    traffic on the smoke qwen2-vl, its summary printed."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, str(repo / "examples" / "serve_monitored_torch.py"),
+                        "--device", "cpu"], capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "PYTHONPATH": str(repo / "src")})
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    assert "requests=12 tokens=144" in r.stdout and "per-phase profile (us):" in r.stdout
+    summary = json.loads(r.stdout.split("monitor:", 1)[1].split("per-phase")[0])
+    assert summary["frames"] == 3 and summary["health"]["ok"]
 
 
 @pytest.mark.parametrize("layout", [
