@@ -102,9 +102,20 @@ non-zero):
            frame embeddings) with path E's options, 4 steps, monitored: no
            port kernel launched; one traced step; one float32 step cut to 2
            layers card vs CPU;
+  K        the cost model, in three parts: (K-a, first, on the host) each
+           path's cell dry-run on the meta device by launch.dryrun (a 4 x
+           1024 prefill wave and decode step for C, D, G, H, I, a train step
+           for E and J) and qwen3-moe-30b-a3b and jamba-v0.1-52b at full
+           width, whose train steps must not fit in 80 GB; (K-c, last, over
+           the NCCL group) launch.steps.make_dp_train_step on gemma-2b at
+           full width, int8 compression off then on, at the largest batch
+           the dry run fits: step-0 loss against build_train_step, quantize
+           card vs CPU bitwise, one all-reduce per parameter leaf, the
+           reduction's device time; (K-b) mfu beside every timed path and
+           the dry run's peak beside the measured one;
 
-then the script's wall time, the card's name and power limit, one JSON line
-describing every ported kernel, and last
+then the script's wall time, the path K JSON line, the card's name and
+power limit, one JSON line describing every ported kernel, and last
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 2 and prints
 no result.
 """
@@ -129,6 +140,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.launch.roofline import HW  # noqa: E402  (imports no torch)
+
 SEED = 17
 ALPHA = 6.0
 # Held as in tests/test_kernels.py:32-37: raw sums rtol 1e-5 (atol 1e-2),
@@ -139,9 +152,9 @@ KERNEL_EDGES = [  # (N, F, block_events) the grid and the row split must get rig
     (0, 16, 512), (1, 1, 512), (300, 7, 37), (1000, 3, 100), (5000, 129, 1024),
     (100_000, 2048, 32), (70_000, 10_000, 512)]
 WIDTH_N, WIDTH_F, WIDTH_EB = 262_144, 2048, 512
-H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA H100 SXM data sheet
-H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same sheet
-H100_BF16_OPS_PER_S = 989e12  # bf16 dense tensor cores, same sheet
+H100_BYTES_PER_S = HW["hbm_bw"]  # HBM3, NVIDIA H100 SXM data sheet: 3.35e12
+H100_F32_OPS_PER_S = HW["peak_flops_f32"]  # float32 outside the tensor cores: 67e12
+H100_BF16_OPS_PER_S = HW["peak_flops"]  # bf16 dense tensor cores: 989e12
 MOMENTS_OPS_PER_EVENT = 20  # float32 operations the kernel does per event
 MOMENTS_SASS = ("UCGABAR_ARV", "UCGABAR_WAIT", "LD", "LDS", "STS", "LDG", "STG", "ATOM",
                 "VOTE", "SHFL", "BAR", "MEMBAR")
@@ -226,6 +239,33 @@ TRAIN_MONITOR = dict(num_funcs=32, kw=dict(min_samples=8, alpha=6.0, straggler_a
 # published width on the stream's frame embeddings with path E's options.
 TRAIN_AUDIO = dict(arch="hubert-xlarge", steps=4, global_batch=4, seq=1024)
 TRAIN_LOSS0_ATOL = 2.0  # step 0 near ln V: random weights give near-uniform logits
+# Path K: the cost model.  K-a dry-runs each card path's cell on the meta
+# device (launch.dryrun), with the shapes registered at run time as
+# tests/test_dryrun.py:92 registers mini_train: one serving wave of paths C,
+# D, G, H and I (its prefill, and a decode step on its 1024-slot cache) and a
+# train step of paths E and J; and, dry only, the two configs whose float32
+# masters exceed the card.  K-b puts the roofline share (mfu = model_flops /
+# (seconds x 989e12)) beside every timed path, and the dry run's predicted
+# peak beside the measured one.  K-c runs the data-parallel step.
+DRYRUN_SHAPES = {"k_prefill": (1024, 4, "prefill"), "k_decode": (1024, 4, "decode"),
+                 "k_train": (1024, 4, "train")}  # name: (seq, global batch, mode)
+DRYRUN_PATHS = (("C", "gemma-2b", ("k_prefill", "k_decode")),
+                ("D", "falcon-mamba-7b", ("k_prefill", "k_decode")),
+                ("G", SERVE_MOE, ("k_prefill", "k_decode")),
+                ("H", SERVE_MLA, ("k_prefill", "k_decode")),
+                ("I", SERVE_VL, ("k_prefill", "k_decode")),
+                ("E", TRAIN["arch"], ("k_train",)),
+                ("J", TRAIN_AUDIO["arch"], ("k_train",)),
+                ("dry", "qwen3-moe-30b-a3b", ("k_prefill", "k_train")),
+                ("dry", "jamba-v0.1-52b", ("k_prefill", "k_train")))
+# K-c: make_dp_train_step on gemma-2b at its published width over the
+# one-rank NCCL group, int8 compression off then on, DP["steps"] steps each,
+# at the first of DP["batches"] rows x DP["seq"] whose dry run fits in 80 GB.
+# Its step-0 loss against build_train_step without remat at the card's
+# exact-resume rtol; the quantisation error per element within
+# tests/test_misc.py:31's 0.51 of its block's scale.
+DP = dict(arch="gemma-2b", steps=4, seq=1024, batches=(4, 2, 1), ce_chunk=512,
+          loss_rtol=1e-5, quant_slack=0.51, opt=TRAIN_OPTS["opt"])
 # The card-vs-CPU step: float32 (TF32 off), full width cut to 2 layers.  Loss
 # and grad norm at float32 sums' tolerances; Adam's first step moves each
 # weight by about lr * sign(g), so an element whose tiny gradient changes
@@ -1209,6 +1249,20 @@ def device_breakdown(fn) -> dict:
             "by_kernel": {k: ms for k, (ms, _) in by_kernel.items()}}
 
 
+def step_peak_bytes(dev, fn):
+    """(max_memory_allocated over one call of ``fn``, the bytes allocated
+    before it): path K-b's measured peak.  ``fn``'s result is dropped."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(dev), held
+
+
 def device_classes(by_kernel: dict) -> dict:
     """Device ms by DEVICE_CLASSES (a kernel in the first class one of whose
     name parts it holds), the rest as "elementwise"."""
@@ -1311,6 +1365,11 @@ def phase_serve(dev, arch: str, kernel: str, bf16_smokes=(), monitor=None) -> di
             + "; top kernels (ms): "
             + ", ".join(f"{n} {m:.3f}" for n, m in prof["top"].items()))
     del cache, logits
+    # Path K-b: the peak of one prefill wave as the dry run's k_prefill cell
+    # runs it (compute weights and the prompts live, no decode slots)
+    prefill_peak, held = step_peak_bytes(dev, lambda: M.prefill(cfg, cparams, {"tokens": toks}))
+    log(f"{tag}: one prefill wave without decode slots: peak memory {prefill_peak / 1e9:.3f} "
+        f"GB, of which {held / 1e9:.3f} GB held before it (the compute weights and prompts)")
     vision = vision_prefill(tag, cfg, cparams, dev, max_seq) \
         if cfg.modality == "vision_stub" else None
     del cparams
@@ -1321,7 +1380,8 @@ def phase_serve(dev, arch: str, kernel: str, bf16_smokes=(), monitor=None) -> di
             "tok_per_s": out["tok_per_s"], "peak_bytes": peak, "param_bytes": param_bytes,
             "prefill_idle_share": prof_prefill["idle_share"],
             "decode_idle_share": prof_decode["idle_share"], "smoke": smoke,
-            "prefill_by_kernel": prof_prefill["by_kernel"], "vision": vision}
+            "prefill_by_kernel": prof_prefill["by_kernel"], "vision": vision,
+            "prefill_peak_bytes": prefill_peak, "prefill_held_bytes": held}
 
 
 def vision_prefill(tag: str, cfg, cparams, dev, max_seq: int) -> dict:
@@ -1861,18 +1921,21 @@ def phase_train_audio(dev) -> dict:
         holder["state"], _ = step_fn(holder["state"], batch)
 
     one_step()
+    step_peak, _ = step_peak_bytes(dev, one_step)
     prof = device_breakdown(one_step)
     del holder, batch, step_fn
     log(f"{tag}: one step traced: {prof['host_ops']} top-level aten ops, wall "
         f"{prof['wall_ms']:.1f} ms, device busy {prof['device_ms']:.1f} ms, idle share "
         + (f"{prof['idle_share']:.3f}" if prof["idle_share"] is not None else "not measured")
-        + "; top kernels (ms): " + ", ".join(f"{n} {m:.3f}" for n, m in prof["top"].items()))
+        + "; top kernels (ms): " + ", ".join(f"{n} {m:.3f}" for n, m in prof["top"].items())
+        + f"; one step's peak memory {step_peak / 1e9:.3f} GB")
     gc.collect()
     torch.cuda.empty_cache()
     parity = train_card_vs_cpu(dev, tag, arch)
     return {"counts": counts, "losses": losses, "grad_norms": gnorms, "step_ms": later_event,
             "step_host_ms": later_host, "tok_per_s": tok_per_s, "peak_bytes": peak,
-            "idle_share": prof["idle_share"], "card_vs_cpu": parity}
+            "step_peak_bytes": step_peak, "idle_share": prof["idle_share"],
+            "card_vs_cpu": parity}
 
 
 # ---------------------------------------------------------------- refusals
@@ -2039,12 +2102,14 @@ def phase_train(dev) -> dict:
         holder["state"], _ = step_fn(holder["state"], batch)
 
     one_step()
+    step_peak, _ = step_peak_bytes(dev, one_step)
     prof = device_breakdown(one_step)
     del holder, state, batch, step_fn
     log(f"{tag}: one step traced: {prof['host_ops']} top-level aten ops, wall "
         f"{prof['wall_ms']:.1f} ms, device busy {prof['device_ms']:.1f} ms, idle share "
         + (f"{prof['idle_share']:.3f}" if prof["idle_share"] is not None else "not measured")
-        + "; top kernels (ms): " + ", ".join(f"{n} {m:.3f}" for n, m in prof["top"].items()))
+        + "; top kernels (ms): " + ", ".join(f"{n} {m:.3f}" for n, m in prof["top"].items())
+        + f"; one step's peak memory {step_peak / 1e9:.3f} GB")
     gc.collect()
     torch.cuda.empty_cache()
     parity = train_card_vs_cpu(dev, tag)
@@ -2052,7 +2117,8 @@ def phase_train(dev) -> dict:
     return {"counts": counts, "losses": losses, "grad_norms": gnorms, "host_ms": host_ms,
             "event_ms": event_ms, "step_ms": later_event, "step_host_ms": later_host,
             "tok_per_s": tok_per_s, "peak_bytes": peak, "idle_share": prof["idle_share"],
-            "device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
+            "step_peak_bytes": step_peak, "device_ms": prof["device_ms"],
+            "wall_ms": prof["wall_ms"],
             "card_vs_cpu": parity, "resume": resume}
 
 
@@ -2487,6 +2553,266 @@ def phase_train_socket(dev, path_e: dict) -> dict:
                       "restarts": faulted["restarts"], "kills": faulted["kills"]}}
 
 
+# ------------------------------------------------------------ path K: cost model
+def phase_dryrun() -> dict:
+    """Path K-a: each card path's cell (DRYRUN_PATHS) dry-run on the meta
+    device by launch.dryrun.run_cell: the config's model FLOPs, the counted
+    FLOPs, bytes and transcendentals, the predicted argument and peak bytes
+    and fits_80gb_hbm.  The two dry-only configs' train cells must not fit:
+    their float32 masters alone exceed the card."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun as D
+
+    for name, (seq, batch, mode) in DRYRUN_SHAPES.items():
+        configs.SHAPES[name] = configs.ShapeCell(name, seq, batch, mode)
+    opts_kw = {k: v for k, v in TRAIN_OPTS.items() if k != "opt"}
+    out = {}
+    for path, arch, shapes in DRYRUN_PATHS:
+        for shape in shapes:
+            tag = f"dryrun[{path} {arch} {shape}]"
+            rec = D.run_cell(arch, shape, opts_kw=opts_kw)
+            if rec["status"] != "ok":
+                raise AssertionError(f"{tag}: {rec}")
+            m, c, roof = rec["memory"], rec["cost"], rec["roofline"]
+            if not (c["flops"] > 0 and c["bytes_accessed"] > 0
+                    and m["peak_bytes"] >= m["argument_size_in_bytes"] > 0):
+                raise AssertionError(f"{tag}: empty count {c} {m}")
+            if path == "dry" and shape == "k_train" and m["fits_80gb_hbm"]:
+                raise AssertionError(f"{tag}: a {rec['n_params']:,}-parameter train state "
+                                     f"fits in 80 GB: {m}")
+            log(f"{tag}: model_flops {rec['model_flops_global']:.4e}; counted flops "
+                f"{c['flops']:.4e} (model/counted {roof['model_vs_hlo_flops']:.3f}), bytes "
+                f"accessed {c['bytes_accessed']:.4e} (op by op, unfused), transcendentals "
+                f"{c['transcendentals']:.4e}, {rec['aten_ops']} aten ops; predicted argument "
+                f"{m['argument_size_in_bytes'] / 1e9:.3f} GB, peak {m['peak_bytes'] / 1e9:.3f} "
+                f"GB, fits_80gb_hbm {m['fits_80gb_hbm']}; roofline bound "
+                f"{roof['step_time_lower_bound_s'] * 1e3:.3f} ms ({roof['dominant']}); "
+                f"counted in {rec['compile_s']:.2f} s of host time")
+            out[(path, arch, shape)] = rec
+    return out
+
+
+def phase_roofline(dry: dict, timed: dict, smi: str) -> dict:
+    """Path K-b: mfu = model_flops / (seconds x HW["peak_flops"]) beside
+    every timed path (prefill per wave, decode per step, train step), the
+    card's name and power limit on each line; and the dry run's predicted
+    peak beside the measured max_memory_allocated, with their ratio."""
+    from repro_torch import configs
+    from repro_torch.launch import roofline as R
+
+    out = {}
+    for path, arch, run in timed["serve"]:
+        cfg = configs.get_config(arch)
+        B, S = SERVE["batch"], SERVE["prompt_len"]
+        for mode, ms in (("prefill", run["prefill_ms"]), ("decode", run["decode_ms"])):
+            mf = R.model_flops(cfg, mode, B, S)
+            share = R.mfu(cfg, mode, B, S, ms / 1e3)
+            what = "per wave" if mode == "prefill" else "per step"
+            log(f"mfu[{path} {arch}]: {mode} {ms:.2f} ms {what}, model_flops {mf:.4e} -> mfu "
+                f"{share:.4f} of {HW['peak_flops']:.3g} FLOP/s ({smi})"
+                + ("; model_flops counts the unembedding at every position, the port's "
+                   "prefill at the last one only" if mode == "prefill" else ""))
+            out[f"{path}/{mode}"] = {"ms": ms, "model_flops": mf, "mfu": share}
+        pred = dry[(path, arch, "k_prefill")]["memory"]["peak_bytes"]
+        got = run["prefill_peak_bytes"]
+        log(f"mem[{path} {arch}]: one prefill wave, predicted peak {pred / 1e9:.3f} GB, "
+            f"measured {got / 1e9:.3f} GB (max_memory_allocated), predicted/measured "
+            f"{pred / got:.3f}")
+        out[f"{path}/prefill"].update(predicted_peak=pred, measured_peak=got)
+    for path, arch, run in timed["train"]:
+        cfg = configs.get_config(arch)
+        B, S = run["batch"], run["seq"]
+        mf = R.model_flops(cfg, "train", B, S)
+        for clock, ms in (("CUDA events", run["step_ms"]), ("host", run["step_host_ms"])):
+            if ms is None:
+                continue
+            log(f"mfu[{path} {arch}]: train step {ms:.1f} ms ({clock}), {B} x {S} tokens, "
+                f"model_flops {mf:.4e} -> mfu {R.mfu(cfg, 'train', B, S, ms / 1e3):.4f} "
+                f"({smi})")
+        entry = {"ms": run["step_ms"], "host_ms": run["step_host_ms"], "model_flops": mf,
+                 "mfu": R.mfu(cfg, "train", B, S, run["step_ms"] / 1e3)}
+        if run.get("predicted_peak") is not None:
+            pred, got = run["predicted_peak"], run["step_peak_bytes"]
+            log(f"mem[{path} {arch}]: one train step, predicted peak {pred / 1e9:.3f} GB, "
+                f"measured {got / 1e9:.3f} GB (max_memory_allocated over the step; "
+                f"{run['peak_bytes'] / 1e9:.3f} GB over the whole run), predicted/measured "
+                f"{pred / got:.3f}")
+            entry.update(predicted_peak=pred, measured_peak=got)
+        out[f"{path}/train"] = entry
+    return out
+
+
+def phase_dp(dev) -> dict:
+    """Path K-c: launch.steps.make_dp_train_step on DP["arch"] at its
+    published width over the one-rank NCCL group, compression off then on,
+    DP["steps"] steps each, at the first batch of DP["batches"] whose dry
+    run (make_dp_cell on the meta device) fits in 80 GB.  Checks: step-0
+    loss equal to build_train_step without remat on the same batch; quantize
+    of a float32 gradient leaf bitwise equal on the card and on the CPU,
+    each element's error within DP["quant_slack"] of its block's scale; one
+    all-reduce per parameter leaf per step and one for the loss, their
+    bytes by roofline.collective_bytes; no port kernel launched."""
+    import torch
+
+    import torch.distributed as dist
+
+    from repro_torch import compat, configs
+    from repro_torch import tree as T
+    from repro_torch.data.pipeline import DataShard, SyntheticStream, to_device
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import model as M
+    from repro_torch.models.common import init_params
+    from repro_torch.optim import compression as C
+    from repro_torch.optim.adamw import OptConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tag = f"train_dp[{DP['arch']}]"
+    cfg = configs.get_config(DP["arch"])
+    S, opt = DP["seq"], OptConfig(**DP["opt"])
+    mesh = compat.make_mesh((1,), ("data",), device=dev)
+    zero_counts()
+    preds = {}
+    for b in DP["batches"]:
+        rec = D.count(TS.make_dp_cell(cfg, b, S, mesh, True, DP["ce_chunk"], opt))
+        preds[b] = rec["peak_bytes"]
+        log(f"{tag}: dry run of the DP cell at {b} x {S} (compression on, no remat): "
+            f"argument {rec['argument_size_in_bytes'] / 1e9:.3f} GB, predicted peak "
+            f"{rec['peak_bytes'] / 1e9:.3f} GB, fits_80gb_hbm "
+            f"{rec['peak_bytes'] < R.HW['hbm_bytes']}; {rec['collectives']['all-reduce']['count']:.0f} "
+            f"all-reduces recorded")
+        if rec["peak_bytes"] < R.HW["hbm_bytes"]:
+            B = b
+            break
+    else:
+        raise AssertionError(f"{tag}: no batch of {DP['batches']} fits: {preds}")
+    why = ("it fits" if B == DP["batches"][0] else
+           f"the dry run puts {DP['batches'][0]} x {S} at "
+           f"{preds[DP['batches'][0]] / 1e9:.1f} GB, above 80 GB; {B} x {S} is the largest "
+           f"of {DP['batches'][1:]} that fits")
+    log(f"{tag}: batch {B} x {S}: {why}")
+    batch = to_device(SyntheticStream(cfg, DataShard(0, 1, B), S).batch_at(0), dev)
+
+    # the reference: one build_train_step step without remat, same batch
+    ref_opts = TS.StepOptions(remat="none", ce_chunk=DP["ce_chunk"], opt=opt)
+    ref_step = TS.build_train_step(cfg, TS.make_shard_ctx(cfg, None, B, ref_opts), ref_opts)
+    ref_loss = float(ref_step(TS.make_train_state(cfg, 0, device=dev), batch)[1]["loss"])
+    del ref_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for compress in (False, True):
+        name = "int8" if compress else "plain"
+        step, init_err = TS.make_dp_train_step(cfg, mesh, opt, compress, DP["ce_chunk"])
+        state = TS.make_train_state(cfg, 0, device=dev)
+        err = init_err(state["params"])
+        leaves = T.leaves(state["params"])
+        param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        if any(t.device != torch.device(dev) for t in leaves + T.leaves(err) + list(batch.values())):
+            raise AssertionError(f"{tag}: a tensor of the DP step is off the card")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec = compat.CollectiveRecorder()
+        losses, ms = [], []
+        for s in range(DP["steps"]):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            if s == 0:
+                with rec:
+                    state, err, m = step(state, err, batch)
+            else:
+                state, err, m = step(state, err, batch)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated(dev)
+        coll = R.collective_bytes(rec.collectives)
+        ar = coll["all-reduce"]
+        if ar["count"] != len(leaves) + 1 or ar["result_bytes"] != param_bytes + 4 or \
+                any(v["count"] for k, v in coll.items() if k != "all-reduce"):
+            raise AssertionError(f"{tag}[{name}]: collectives {coll}, expected "
+                                 f"{len(leaves) + 1} all-reduces of {param_bytes + 4} bytes")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{tag}[{name}]: non-finite losses {losses}")
+        if abs(losses[0] - ref_loss) > DP["loss_rtol"] * abs(ref_loss):
+            raise AssertionError(f"{tag}[{name}]: step-0 loss {losses[0]!r} against "
+                                 f"build_train_step's {ref_loss!r}, rtol {DP['loss_rtol']}")
+        step_ms = float(np.median(ms[1:]))
+        log(f"{tag}[{name}]: {DP['steps']} steps of {B} x {S}, losses "
+            + ", ".join(f"{x:.4f}" for x in losses)
+            + f"; step-0 loss {losses[0]!r} = build_train_step's {ref_loss!r} (rtol "
+            f"{DP['loss_rtol']}); CUDA events per step " + ", ".join(f"{x:.1f}" for x in ms)
+            + f" ms, steps 1-{DP['steps'] - 1}: median {step_ms:.1f} ms, mean "
+            f"{float(np.mean(ms[1:])):.1f} ms; peak memory "
+            f"{peak / 1e9:.3f} GB (predicted {preds[B] / 1e9:.3f} GB with compression); "
+            f"collectives per step: {ar['count']:.0f} all-reduces, {ar['result_bytes']:.0f} "
+            f"result bytes, {ar['wire_bytes']:.0f} wire bytes (ring estimate)")
+        runs[name] = {"losses": losses, "step_ms": step_ms, "event_ms": ms, "peak_bytes": peak,
+                      "collectives": ar}
+        del state, err, m, step, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the reduction's own device time, compressed and plain, over tensors
+    # of the gradients' shapes (the parameters), as the step's loop runs it
+    params = init_params(cfg, 0, dev)
+    grads = T.leaves(params)
+    errs = [torch.zeros_like(t) for t in grads]
+    group, one = mesh.get_group(), torch.full((), 1.0, device=dev)
+
+    def plain_pass():
+        for g in grads:
+            dist.all_reduce(g, group=group)
+            g.div_(one)
+
+    def int8_pass():
+        for g, e in zip(grads, errs):
+            e.copy_(C.compressed_psum(g, group, e)[1])
+
+    pass_ms = {"plain": cuda_ms(plain_pass, iters=3, warmup=1),
+               "int8": cuda_ms(int8_pass, iters=3, warmup=1)}
+    del grads, errs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a float32 gradient leaf, quantised on the card and on the CPU: the
+    # first layer's wq (75.5 M elements: the CPU quantises it in seconds)
+    w = params["layers"][0]["wq"].detach().requires_grad_(True)
+    params["layers"][0]["wq"] = w
+    with torch.enable_grad():
+        loss, _ = M.loss_and_metrics(cfg, params, batch, M.ShardCtx(), DP["ce_chunk"])
+        (g,) = torch.autograd.grad(loss, [w])
+    del params, w, loss
+    codes, scale = C.quantize(g)
+    codes_cpu, scale_cpu = C.quantize(g.cpu())
+    if not (torch.equal(codes.cpu(), codes_cpu) and torch.equal(scale.cpu(), scale_cpu)):
+        raise AssertionError(f"{tag}: quantize of the gradient of layers[0].wq differs "
+                             f"between the card and the CPU")
+    back = C.dequantize(codes, scale, tuple(g.shape))
+    per_elem = scale.expand(-1, C.BLOCK).reshape(-1)[:g.numel()].reshape(g.shape)
+    ratio = float(((back - g).abs() / per_elem.clamp(min=1e-30)).max())
+    if ratio > DP["quant_slack"]:
+        raise AssertionError(f"{tag}: a quantisation error of {ratio:.4f} of its block's scale")
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{tag}: port kernels launched on the DP path: {counts}")
+    added = pass_ms["int8"] - pass_ms["plain"]
+    log(f"{tag}: quantize of the float32 gradient of layers[0].wq "
+        f"({g.numel():,} elements, {codes.shape[0]:,} blocks): codes and scales bitwise equal "
+        f"on the card and on the CPU; largest error {ratio:.4f} of its block's scale; one "
+        f"reduction of every gradient leaf takes {pass_ms['plain']:.1f} ms plain and "
+        f"{pass_ms['int8']:.1f} ms int8 (CUDA events): compression adds {added:.1f} ms of "
+        f"device time per step (step medians {runs['plain']['step_ms']:.1f} -> "
+        f"{runs['int8']['step_ms']:.1f} ms); port kernel launches {counts}")
+    del g, codes, scale, codes_cpu, scale_cpu, back, per_elem, batch
+    return {"counts": counts, "batch": B, "seq": S, "why": why, "predicted_peak": preds[B],
+            "runs": runs, "ref_loss": ref_loss, "quant_max_ratio": ratio,
+            "reduce_pass_ms": pass_ms, "compress_added_ms": added}
+
+
 # --------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -2503,6 +2829,9 @@ def main() -> int:
     dev = default_device()
     torch.cuda.set_device(dev)
     env = phase_env()
+    zero_counts()
+    dry = phase_dryrun()
+    dry_counts = read_counts()
     agree = Agreement()
     timing = phase_kernel(dev, agree)
     flash_agree = OutputAgreement()
@@ -2512,28 +2841,56 @@ def main() -> int:
     phase_refusals(dev)
 
     with tempfile.TemporaryDirectory() as tmp:
+        # one NCCL group of world size 1: path A's collectives, then path K-c's
         dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0,
                                 world_size=1)
         try:
             trace = phase_trace(dev, dist.group.WORLD)
+            width = phase_width(dev, agree)
+            served = phase_serve(dev, "gemma-2b", "flash_attention",
+                                 bf16_smokes=("gemma-2b", "gemma2-2b"))
+            served_ssm = phase_serve(dev, "falcon-mamba-7b", "mamba_scan")
+            served_moe = phase_serve_moe(dev)
+            served_mla = phase_serve(dev, SERVE_MLA, "flash_attention",
+                                     bf16_smokes=(SERVE_MLA,))
+            served_vl = phase_serve_vl(dev)
+            trained = phase_train(dev)
+            trained_socket = phase_train_socket(dev, trained)
+            trained_audio = phase_train_audio(dev)
+            dp = phase_dp(dev)
         finally:
             dist.destroy_process_group()
-    width = phase_width(dev, agree)
-    served = phase_serve(dev, "gemma-2b", "flash_attention",
-                         bf16_smokes=("gemma-2b", "gemma2-2b"))
-    served_ssm = phase_serve(dev, "falcon-mamba-7b", "mamba_scan")
-    served_moe = phase_serve_moe(dev)
-    served_mla = phase_serve(dev, SERVE_MLA, "flash_attention", bf16_smokes=(SERVE_MLA,))
-    served_vl = phase_serve_vl(dev)
-    trained = phase_train(dev)
-    trained_socket = phase_train_socket(dev, trained)
-    trained_audio = phase_train_audio(dev)
+    train_cell = lambda arch: dry[(  # noqa: E731
+        {TRAIN["arch"]: "E", TRAIN_AUDIO["arch"]: "J"}[arch], arch, "k_train")]
+    timed = {
+        "serve": [("C", "gemma-2b", served), ("D", "falcon-mamba-7b", served_ssm),
+                  ("G", SERVE_MOE, served_moe), ("H", SERVE_MLA, served_mla),
+                  ("I", SERVE_VL, served_vl)],
+        "train": [("E", TRAIN["arch"], {**trained, "batch": TRAIN["global_batch"],
+                                        "seq": TRAIN["seq"], "predicted_peak":
+                                        train_cell(TRAIN["arch"])["memory"]["peak_bytes"]}),
+                  ("F", TRAIN["arch"], {**trained_socket, "batch": TRAIN["global_batch"],
+                                        "seq": TRAIN["seq"], "predicted_peak": None}),
+                  ("J", TRAIN_AUDIO["arch"], {
+                      **trained_audio, "batch": TRAIN_AUDIO["global_batch"],
+                      "seq": TRAIN_AUDIO["seq"],
+                      "predicted_peak": train_cell(TRAIN_AUDIO["arch"])["memory"]["peak_bytes"]})]
+        + [(f"K-c {name}", DP["arch"], {"step_ms": run["step_ms"],
+                                        "step_host_ms": None, "batch": dp["batch"],
+                                        "seq": dp["seq"], "peak_bytes": run["peak_bytes"],
+                                        "step_peak_bytes": run["peak_bytes"],
+                                        "predicted_peak": dp["predicted_peak"]
+                                        if name == "int8" else None})
+           for name, run in dp["runs"].items()],
+    }
+    roofline = phase_roofline(dry, timed, env["smi"])
 
     paths = {"trace": trace["counts"], "width": width["counts"], "serve": served["counts"],
              "serve_ssm": served_ssm["counts"], "serve_moe": served_moe["counts"],
              "serve_mla": served_mla["counts"], "serve_vl": served_vl["counts"],
              "train": trained["counts"], "train_socket": trained_socket["counts"],
-             "train_audio": trained_audio["counts"]}
+             "train_audio": trained_audio["counts"], "dryrun": dry_counts,
+             "train_dp": dp["counts"]}
     needs = {"trace": "moments_and_labels", "width": "moments_and_labels",
              "serve": "flash_attention", "serve_ssm": "mamba_scan",
              "serve_moe": "flash_attention", "serve_mla": "flash_attention",
@@ -2541,6 +2898,9 @@ def main() -> int:
     for path, name in needs.items():
         if paths[path][name] <= 0:
             raise AssertionError(f"main path {path} never launched {name}: {paths[path]}")
+    for path in ("dryrun", "train_dp"):  # path K runs the plain versions, as JAX's probe
+        if any(paths[path].values()):
+            raise AssertionError(f"path {path} launched a port kernel: {paths[path]}")
 
     def by_path(name):
         return {path: c[name] for path, c in paths.items()}
@@ -2640,6 +3000,17 @@ def main() -> int:
     }]
     log(f"trace precision {trace['precision']:.4f} recall {trace['recall']:.4f}; "
         f"build {env['build_s']:.2f} s; wall {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"path_k": {
+        "dryrun": {f"{path} {arch} {shape}": {
+            "model_flops": rec["model_flops_global"], "flops": rec["cost"]["flops"],
+            "bytes_accessed": rec["cost"]["bytes_accessed"],
+            "argument_bytes": rec["memory"]["argument_size_in_bytes"],
+            "peak_bytes": rec["memory"]["peak_bytes"],
+            "fits_80gb_hbm": rec["memory"]["fits_80gb_hbm"], "count_s": rec["compile_s"]}
+            for (path, arch, shape), rec in dry.items()},
+        "roofline": roofline, "power": env["smi"],
+        "dp": {k: dp[k] for k in ("batch", "seq", "why", "predicted_peak", "runs", "ref_loss",
+                                  "quant_max_ratio", "reduce_pass_ms", "compress_added_ms")}}}))
     log(env["smi"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

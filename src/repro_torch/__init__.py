@@ -10,8 +10,12 @@ has a twin of the same name:
               the monitor, its shard federation over sockets with crash
               recovery and the trace export (host modules copied from
               ``repro``: numpy and the standard library only)
-  launch/     the step builders, the serving and training drivers, and
-              the shard worker launcher (``shard_server``, torch-free)
+  launch/     the step builders (train, data-parallel, the dry run's
+              cells), the serving and training drivers, the roofline
+              model and the dry run, the sharding rules, and the shard
+              worker launcher (``shard_server``, torch-free)
+  compat      the dry run's counting context (FLOPs, bytes, live memory,
+              collectives) and ``make_mesh``
   kernels/    the hand-written Hopper kernels, their plain PyTorch versions
               and the wrappers that dispatch between them
   convert     stats tables carried between the JAX package, the host

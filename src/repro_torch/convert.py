@@ -8,7 +8,9 @@ of its JAX tree path (:func:`flat_names`, ``jax.tree_util.keystr``).  A
 train state (:func:`train_state_from_jax`, :func:`train_state_to_numpy`)
 is ``{"params", "m", "v", "step"}`` and, with a float32 master beside bf16
 params, ``"master"``, as ``launch.steps.make_train_state`` makes it in
-both packages.
+both packages.  The data-parallel step's error-feedback state
+(:func:`error_state_from_jax`) is stacked over devices in JAX and held per
+rank in the port.
 
 Stats tables:
 
@@ -35,7 +37,7 @@ from .core import stats as _host
 from .core.torch_ad import NCOLS
 from .device import resolve
 from .models.common import ModelConfig, param_shapes
-from .tree import paths as _paths
+from .tree import map as _tree_map, paths as _paths
 
 HOST_COLUMNS = [_host.N, _host.MEAN, _host.M2, _host.MIN, _host.MAX]
 
@@ -134,3 +136,20 @@ def train_state_to_numpy(state) -> Dict[str, Any]:
     out = {k: params_to_numpy(state[k]) for k in ("params", "m", "v", "master") if k in state}
     out["step"] = np.asarray(int(state["step"]), dtype=np.int32)
     return out
+
+
+# ----------------------------------------------------------------- error feedback
+def error_state_from_jax(err, rank: int, *, device=None) -> Any:
+    """JAX's data-parallel error-feedback state (``make_dp_train_step``'s
+    ``init_err`` tree: each leaf stacked over a leading (ndev,) axis, as
+    numpy) -> rank ``rank``'s float32 tensors on ``device``, the tree
+    ``launch.steps.make_dp_train_step`` keeps on that rank."""
+    device = resolve(device)
+
+    def leaf(arr) -> torch.Tensor:
+        arr = np.asarray(arr)
+        if arr.ndim < 1 or not 0 <= rank < arr.shape[0]:
+            raise ValueError(f"rank {rank} outside a stacked leaf of shape {arr.shape}")
+        return torch.from_numpy(np.array(arr[rank], dtype=np.float32)).to(device)
+
+    return _tree_map(leaf, err)

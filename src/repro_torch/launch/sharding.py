@@ -1,0 +1,178 @@
+"""Sharding rules: params (TP + FSDP), batches, caches (port of
+``repro.launch.sharding``, the rules alone).
+
+Per-key Megatron-style roles decide the tensor-parallel dim; the FSDP rule
+additionally shards one remaining dim over the batch axes.  All choices
+degrade gracefully: a dim is only sharded when divisible by the axis size,
+so odd vocabularies (49155, 73448) and odd head counts (40, 12, 8) fall
+back to the next-best dim.
+
+Each rule is a pure function returning the per-dim spec that JAX's
+``PartitionSpec`` holds, as a tuple: an entry is None (replicated), an axis
+name, or a tuple of axis names.  Turning specs into placements on a real
+mesh (``param_shardings``, ``batch_shardings``, ``cache_shardings``) waits
+for DTensor: ROADMAP.md item 11.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+from .._unported import unported
+from ..models.common import ModelConfig
+from .mesh import batch_axes as mesh_batch_axes, batch_shards, tp_size
+
+Spec = Tuple
+
+
+def _spec(*entries) -> Spec:
+    """The entries as ``PartitionSpec`` holds them: a tuple of one axis
+    name is that name, an empty tuple None."""
+    return tuple((e[0] if len(e) == 1 else (e or None)) if isinstance(e, tuple) else e
+                 for e in entries)
+
+# Megatron role per parameter name: which dim of the (in, out) 2-D view the
+# model axis shards. 'col' -> output dim, 'row' -> input dim, 'rep' -> none.
+_COL = frozenset(
+    {"wq", "wk", "wv", "wuq", "wuk", "wuv", "wdq", "in_proj", "dt_proj",
+     "w_gate", "w_up", "conv_w", "unembed"}
+)
+_ROW = frozenset({"wo", "out_proj", "x_proj", "w_down", "A_log"})
+_VEC_MODEL = frozenset({"conv_b", "dt_bias", "D"})  # d_inner-length vectors
+_EXPERT = frozenset({"moe_gate", "moe_up", "moe_down"})
+_REP = frozenset(
+    {"ln1", "ln2", "post_ln1", "post_ln2", "q_ln", "kv_ln", "final_ln",
+     "router", "wdkv"}
+)
+
+
+def _fsdp_dim(shape: Tuple[int, ...], taken: int, dp: int) -> Optional[int]:
+    """Largest not-yet-sharded dim divisible by the data-parallel size."""
+    best, best_size = None, 0
+    for i, s in enumerate(shape):
+        if i == taken:
+            continue
+        if s % dp == 0 and s > best_size and s >= dp:
+            best, best_size = i, s
+    return best
+
+
+_MAMBA_KEYS = frozenset(
+    {"in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log",
+     "D", "out_proj"}
+)
+
+
+def param_pspec(
+    key: str,
+    shape: Tuple[int, ...],
+    tp: int,
+    dp_axes: Tuple[str, ...],
+    dp: int,
+    stacked: bool,
+    fsdp: bool = True,
+    mamba_tp: bool = True,
+) -> Spec:
+    """PartitionSpec for one parameter tensor."""
+    off = 1 if stacked else 0  # leading n_periods dim is never sharded
+    spec: list = [None] * len(shape)
+    model_dim = None
+    if not mamba_tp and key in _MAMBA_KEYS:
+        # mamba layers as pure FSDP: kills the 2 fwd + ~4 bwd row-parallel
+        # activation psums per layer (EXPERIMENTS.md §Perf falcon-mamba)
+        fd = _fsdp_dim(tuple(0 if i < off else s2 for i, s2 in enumerate(shape)), -1, dp)
+        if fsdp and fd is not None and fd >= off:
+            spec[fd] = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+        # give the model axis a secondary dim if one divides (pure sharding,
+        # gathered at use like FSDP — no activation psums introduced)
+        for i in range(len(shape) - 1, off - 1, -1):
+            if i != fd and shape[i] % tp == 0:
+                spec[i] = "model"
+                break
+        return _spec(*spec)
+    if key in _EXPERT:
+        if shape[off] % tp == 0:
+            model_dim = off  # experts over the model axis (EP)
+    elif key in _COL:
+        cand = len(shape) - 1
+        if shape[cand] % tp == 0:
+            model_dim = cand
+    elif key in _ROW:
+        cand = off  # input dim of the 2-D view
+        if shape[cand] % tp == 0:
+            model_dim = cand
+    elif key in _VEC_MODEL:
+        if shape[-1] % tp == 0:
+            model_dim = len(shape) - 1
+    elif key == "embed":
+        if shape[0] % tp == 0:
+            model_dim = 0  # vocab-sharded
+        elif shape[1] % tp == 0:
+            model_dim = 1
+    if key in _REP or (model_dim is None and key not in ("embed",)):
+        # fall back: try to give the model axis SOMETHING divisible
+        if key not in _REP:
+            for i in range(len(shape) - 1, off - 1, -1):
+                if shape[i] % tp == 0:
+                    model_dim = i
+                    break
+    if model_dim is not None:
+        spec[model_dim] = "model"
+    if fsdp and dp > 1:
+        fd = _fsdp_dim(tuple(0 if i < off else s for i, s in enumerate(shape)),
+                       model_dim if model_dim is not None else -1, dp)
+        if fd is not None and fd >= off:
+            spec[fd] = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+    return _spec(*spec)
+
+
+# ----------------------------------------------------------------- batches
+def batch_pspec(cfg: ModelConfig, name: str, shape, mesh) -> Spec:
+    dpa = mesh_batch_axes(mesh)
+    dp = batch_shards(mesh)
+    b = dpa if (len(dpa) > 0 and shape[0] % dp == 0 and shape[0] > 1) else None
+    if name == "pos3":  # (3, B, S)
+        b3 = dpa if shape[1] % dp == 0 and shape[1] > 1 else None
+        return _spec(None, b3, None)
+    rest = [None] * (len(shape) - 1)
+    return _spec(b, *rest)
+
+
+# ------------------------------------------------------------------- cache
+def cache_pspec(path_keys, shape, cfg: ModelConfig, mesh) -> Spec:
+    """Decode caches: batch over batch-axes, sequence over the model axis
+    (uniform across archs — scales to 500k contexts regardless of head
+    count; attention over the seq-sharded cache is a shard_map flash-decode
+    merge, see models/model.py)."""
+    tp = tp_size(mesh)
+    dpa = mesh_batch_axes(mesh)
+    dp = batch_shards(mesh)
+    key = path_keys[-1]
+    if key == "pos":
+        return ()
+    if key == "kpos":  # (NP, Sc)
+        return (None, "model" if shape[1] % tp == 0 else None)
+    b = dpa if shape[1] % dp == 0 and shape[1] > 1 else None
+    if key in ("k", "v", "ckv", "krope"):  # (NP, B, Sc, ...)
+        s = "model" if shape[2] % tp == 0 else None
+        rest = [None] * (len(shape) - 3)
+        return _spec(None, b, s, *rest)
+    if key == "h":  # (NP, B, di, st)
+        s = "model" if shape[2] % tp == 0 else None
+        return _spec(None, b, s, None)
+    if key == "conv":  # (NP, B, K-1, di)
+        s = "model" if shape[3] % tp == 0 else None
+        return _spec(None, b, None, s)
+    return ()
+
+
+def param_shardings(cfg: ModelConfig, params_tree, mesh, fsdp: bool = True,
+                    mamba_tp: bool = True):
+    raise unported("param_shardings (DTensor placements)", 11)
+
+
+def batch_shardings(cfg: ModelConfig, spec, mesh):
+    raise unported("batch_shardings (DTensor placements)", 11)
+
+
+def cache_shardings(cfg: ModelConfig, cache_tree, mesh):
+    raise unported("cache_shardings (DTensor placements)", 11)

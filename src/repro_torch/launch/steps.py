@@ -1,23 +1,32 @@
-"""Step builders (port of ``repro.launch.steps``): train, prefill, decode.
+"""Step builders (port of ``repro.launch.steps``): train, prefill, decode,
+the data-parallel train step, and the dry run's cells.
 
-One device, eager PyTorch: there is no ``jit``, and the step functions are
-plain closures over the config.  The train step takes the gradients with
+Eager PyTorch: there is no ``jit``, and the step functions are plain
+closures over the config.  The train step takes the gradients with
 autograd (``torch.autograd.grad``) and updates the state in place, where
-JAX donates it (``donate=False`` works on a copy instead).  Meshes, FSDP,
-sequence parallelism and the data-parallel step wait for ROADMAP.md
-queue 1, item 11; the dry-run's probe mode for item 12.
+JAX donates it (``donate=False`` works on a copy instead).
+
+:func:`make_cell` builds a step and its arguments as stand-ins on the meta
+device (shapes and dtypes, no data), which ``launch.dryrun`` runs under
+the counting context; :func:`make_dp_train_step` is JAX's ``shard_map``
+data-parallel step with its collectives written out in
+``torch.distributed``.  Meshes with parameter placements, FSDP and
+sequence parallelism wait for ROADMAP.md queue 1, item 11.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from .. import configs
 from .. import tree as T
 from .._unported import unported
+from ..data.pipeline import batch_spec as data_batch_spec
 from ..models import model as M
-from ..models.common import ModelConfig, init_params
+from ..models.common import ModelConfig, init_params, param_shapes
 from ..models.model import ShardCtx
 from ..optim.adamw import OptConfig, apply_updates, init_opt_state
 
@@ -30,7 +39,7 @@ class StepOptions:
     microbatch: int = 0  # gradient-accumulation steps; 0 = auto (fit memory)
     seq_shard: bool = False  # sequence-parallel hidden states: needs a mesh
     donate: bool = True  # the train step updates its state in place
-    probe: bool = False  # unrolled cost-accounting compile (dryrun --probes)
+    probe: bool = False  # cost probe (dryrun --probes): direct attention, whole chunks
     # bf16 params + float32 master inside the state (JAX: halves the FSDP
     # weight-gather footprint)
     master_in_opt: bool = False
@@ -56,9 +65,7 @@ def make_shard_ctx(cfg: ModelConfig, mesh, global_batch: int, opts: StepOptions)
         raise unported("meshes", 11)
     if opts.seq_shard:
         raise unported("StepOptions(seq_shard=True) (a mesh)", 11)
-    if opts.probe:
-        raise unported("StepOptions(probe=True) (the dry run)", 12)
-    return ShardCtx(remat=opts.remat)
+    return ShardCtx(remat=opts.remat, unroll=opts.probe)
 
 
 # ------------------------------------------------------------ step fns
@@ -141,6 +148,71 @@ def build_decode_step(cfg: ModelConfig, ctx: ShardCtx, opts: StepOptions) -> Cal
     return decode_step
 
 
+def make_dp_train_step(
+    cfg: ModelConfig, mesh, opt: OptConfig = OptConfig(),
+    compress: bool = True, ce_chunk: int = 512,
+):
+    """Data-parallel step over a 1-D ``DeviceMesh``, the gradients
+    all-reduced leaf by leaf (int8-compressed with error feedback, or a
+    plain mean), as JAX's ``shard_map`` step computes.
+
+    Each rank runs it on its slice of the global batch (rank r: rows
+    r·B/n to (r+1)·B/n, JAX's batch sharding) with the same state.  The
+    local loss and gradients take the default ``ShardCtx()`` (no remat, as
+    JAX); then one all-reduce per parameter leaf (``compressed_psum`` or a
+    sum divided by n), AdamW, and the loss averaged over the ranks (one
+    more all-reduce).  Each rank holds its own error-feedback tensors, where
+    JAX stacks them on a leading (ndev,) axis (``convert.error_state_from_jax``
+    takes rank r's).
+
+    Returns (step, init_err_fn).  step(state, err, batch) -> (state, err,
+    metrics); the state and the error tensors are updated in place, as
+    ``build_train_step`` updates its state, and each gradient leaf is
+    dropped once reduced, so the step holds one gradient tree at a time.
+    """
+    from ..optim.compression import compressed_psum, init_error_state
+
+    if mesh.ndim != 1:
+        raise unported("make_dp_train_step on a mesh of more than one dim", 11)
+    group = mesh.get_group()
+    ndev = mesh.size()
+    ctx = ShardCtx()
+
+    def step(state, err, batch):
+        params = state["params"]
+        live = [t.detach().requires_grad_(True) for t in T.leaves(params)]
+        with torch.enable_grad():
+            loss, _ = M.loss_and_metrics(cfg, T.unflatten(params, live), batch, ctx, ce_chunk)
+            grads = torch.autograd.grad(loss, live, allow_unused=True)
+        grads, new_g = list(grads), []
+        # JAX's pmean divides by the group's size; a tensor divisor keeps
+        # the quotient true on CUDA, which multiplies by a scalar's reciprocal
+        n = torch.full((), float(ndev), device=loss.device)
+        for i, (t, e) in enumerate(zip(live, T.leaves(err))):
+            g, grads[i] = grads[i], None
+            g = torch.zeros_like(t) if g is None else g
+            if compress:
+                g, new_e = compressed_psum(g, group, e)
+                e.copy_(new_e)
+                del new_e
+            else:
+                dist.all_reduce(g, group=group)
+                g.div_(n)
+            new_g.append(g)
+        del grads, live
+        new_params, opt_state, stats = apply_updates(
+            params, T.unflatten(params, new_g),
+            {"m": state["m"], "v": state["v"], "step": state["step"]}, opt,
+        )
+        loss = loss.detach().clone()
+        dist.all_reduce(loss, group=group)
+        state = {"params": new_params, "m": opt_state["m"], "v": opt_state["v"],
+                 "step": opt_state["step"]}
+        return state, err, {"loss": loss / n, **stats}
+
+    return step, init_error_state
+
+
 def make_train_state(cfg: ModelConfig, seed: int = 0, master_in_opt: bool = False,
                      device=None) -> Dict:
     """float32 params from ``seed`` on ``device`` (None: the port's default),
@@ -153,3 +225,83 @@ def make_train_state(cfg: ModelConfig, seed: int = 0, master_in_opt: bool = Fals
         state["master"] = params
         state["params"] = T.map(lambda q: q.to(torch.bfloat16), params)
     return state
+
+
+# ------------------------------------------------------------------- cells
+def meta_params(cfg: ModelConfig, dtype=None) -> Dict[str, Any]:
+    """The parameter tree as meta tensors in ``dtype`` (default
+    ``cfg.param_dtype``): shapes and dtypes, no data and no random draw."""
+    dtype = cfg.param_dtype if dtype is None else dtype
+    return T.map(lambda shape: torch.empty(shape, dtype=dtype, device="meta"),
+                 param_shapes(cfg))
+
+
+def meta_train_state(cfg: ModelConfig, master_in_opt: bool = False) -> Dict[str, Any]:
+    """:func:`make_train_state`'s tree as meta tensors."""
+    params = meta_params(cfg)
+    o = init_opt_state(params)
+    state = {"params": params, "m": o["m"], "v": o["v"], "step": o["step"]}
+    if master_in_opt:
+        state["master"] = params
+        state["params"] = meta_params(cfg, torch.bfloat16)
+    return state
+
+
+@dataclasses.dataclass
+class Cell:
+    """One (arch × shape) step on the meta device: ``fn(*args)`` runs it."""
+
+    cfg: ModelConfig
+    shape: str
+    mode: str
+    fn: Callable  # the step function
+    args: Tuple[Any, ...]  # meta-tensor stand-ins
+
+    def run(self):
+        return self.fn(*self.args)
+
+
+def make_cell(arch, shape: str, mesh=None, opts: StepOptions = StepOptions(), *,
+              batch: Optional[int] = None) -> Cell:
+    """The cell's step and its arguments as meta tensors.
+
+    The step is the one the launchers run, with ``ShardCtx(plain=True)``:
+    prefill's attention and scan take their plain versions, since no kernel
+    takes meta tensors.  Prefill and decode take the compute-dtype weights
+    the serving driver holds (``models.model.compute_params``), where JAX's
+    cells take the float32 masters and cast them inside the step.
+    ``batch`` overrides the shape's global batch (the dry run counts a few
+    microbatches of a train cell and extrapolates).
+    """
+    cfg = configs.get_config(arch) if isinstance(arch, str) else arch
+    cell = configs.SHAPES[shape]
+    B, S = cell.global_batch if batch is None else batch, cell.seq_len
+    ctx = dataclasses.replace(make_shard_ctx(cfg, mesh, B, opts), plain=True)
+    if opts.probe:
+        opts = dataclasses.replace(opts, ce_chunk=S)
+
+    if cell.mode == "train":
+        mb = opts.microbatch or auto_microbatch(cfg, B, S, 1)
+        fn = build_train_step(cfg, ctx, opts, microbatch=mb)
+        args = (meta_train_state(cfg, opts.master_in_opt), data_batch_spec(cfg, B, S))
+    elif cell.mode == "prefill":
+        fn = build_prefill_step(cfg, ctx, opts)
+        batch = data_batch_spec(cfg, B, S)
+        batch.pop("labels", None)
+        args = (M.compute_params(cfg, meta_params(cfg)), batch)
+    else:  # decode
+        fn = build_decode_step(cfg, ctx, opts)
+        args = (M.compute_params(cfg, meta_params(cfg)), M.init_cache(cfg, B, S, device="meta"),
+                torch.empty((B, 1), dtype=torch.int32, device="meta"))
+    return Cell(cfg, shape, cell.mode, fn, args)
+
+
+def make_dp_cell(cfg: ModelConfig, batch: int, seq: int, mesh, compress: bool = True,
+                 ce_chunk: int = 512, opt: OptConfig = OptConfig()) -> Cell:
+    """:func:`make_dp_train_step`'s step and one rank's arguments (state,
+    error state, its ``batch`` × ``seq`` rows) as meta tensors: its
+    collectives run as no-ops on meta tensors, and are recorded."""
+    step, init_err = make_dp_train_step(cfg, mesh, opt, compress, ce_chunk)
+    state = meta_train_state(cfg)
+    args = (state, init_err(state["params"]), data_batch_spec(cfg, batch, seq))
+    return Cell(cfg, f"dp_{batch}x{seq}", "train", step, args)

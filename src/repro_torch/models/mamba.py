@@ -201,6 +201,7 @@ def mamba_prefill(
     p: Dict[str, torch.Tensor],
     u: torch.Tensor,  # (B, S, d_model)
     cfg: ModelConfig,
+    chunk: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill mixer: (output (B,S,d_model), decode state {"h", "conv"}).
 
@@ -209,7 +210,9 @@ def mamba_prefill(
     takes them (left-padded with the conv's zeros when S < K−1, where JAX
     keeps fewer rows and its decode cannot run).  Any S ≥ 1.  The scan elements a and b
     are (B,S,di,st) float32 (2.15 GB each at falcon-mamba-7b's serving wave
-    of 4 × 1024) and are freed before the layer returns.
+    of 4 × 1024) and are freed before the layer returns.  With ``chunk``
+    the scan is ``mamba_sequence``'s chunked plain scan instead (the dry
+    run: no kernel takes meta tensors), which gives y and the state too.
     """
     K = cfg.ssm_d_conv
     xz = u @ p["in_proj"]
@@ -219,6 +222,11 @@ def mamba_prefill(
         else tail.clone()
     x = L.silu(causal_conv1d(x, p["conv_w"], p["conv_b"]))
     dt, Bm, Cm, A = _project(p, x, cfg)
+    if chunk is not None:
+        y, h = _ssm_scan_fused(dt, x, Bm, Cm, A, chunk=chunk)
+        # copied: h is a view of the last chunk's (B,Lc,di,st) states, which
+        # the cache would otherwise keep alive (268 MB a layer at 4 x 1024)
+        return _output(p, y, x, z, u.dtype), {"h": h.clone(), "conv": conv}
     a, b = _scan_elements(dt, x, Bm, A)
     y, h = ops.mamba_scan(a, b, Cm.float())
     del a, b

@@ -50,9 +50,31 @@ from .moe import moe_block
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
     """How the current step runs.  The port runs on one device: meshes and
-    sequence parallelism wait for ROADMAP.md queue 1, item 11."""
+    sequence parallelism wait for ROADMAP.md queue 1, item 11.
+
+    ``unroll`` is JAX's probe mode (the dry run's cost probe): single-block
+    attention and whole-sequence Mamba chunks.  ``plain`` sends prefill's
+    attention and scan through their plain versions (``layers.attention``
+    and the chunked scan, as the training path runs them) instead of the
+    kernels: the dry run's meta tensors, which no kernel takes.  A probe
+    is plain too.
+    """
 
     remat: str = "none"  # none | block
+    unroll: bool = False
+    plain: bool = False
+
+    @property
+    def kernels(self) -> bool:
+        """Whether prefill launches the kernels (through ``kernels.ops``)."""
+        return not (self.unroll or self.plain)
+
+    def direct_threshold(self) -> int:
+        """``layers.attention``'s switch to the chunked path: never in a probe."""
+        return (1 << 30) if self.unroll else 1024
+
+    def mamba_chunk(self, S: int) -> int:
+        return S if self.unroll else 128
 
 
 # ---------------------------------------------------------------- embedding
@@ -164,21 +186,30 @@ def _qkv(cfg, p, h, cos, sin):
     return q, k, v
 
 
-def _attn_seq(cfg, spec, p, h, cos, sin) -> torch.Tensor:
+def _attn_seq(cfg, spec, p, h, cos, sin, ctx: ShardCtx) -> torch.Tensor:
     B, S, _ = h.shape
     q, k, v = _qkv(cfg, p, h, cos, sin)
     window = cfg.window if spec.mixer == SWA else 0
-    out = L.attention(q, k, v, causal=cfg.causal, window=window, cap=cfg.attn_softcap)
+    out = L.attention(q, k, v, causal=cfg.causal, window=window, cap=cfg.attn_softcap,
+                      direct_threshold=ctx.direct_threshold())
     return out.reshape(B, S, -1) @ p["wo"]
 
 
-def _attn_seq_with_cache(cfg, spec, p, h, cos, sin):
-    """Prefill: returns (attn_out, (k_full, v_full)); attention through the
-    flash kernel (its plain version for CPU tensors)."""
+def _prefill_attention(ctx: ShardCtx, q, k, v, **kw) -> torch.Tensor:
+    """Prefill's attention: the flash kernel (its plain version for CPU
+    tensors), or with ``ctx.plain`` or ``ctx.unroll`` ``layers.attention``."""
+    if ctx.kernels:
+        return ops.flash_attention(q, k, v, **kw)
+    return L.attention(q, k, v, direct_threshold=ctx.direct_threshold(), **kw)
+
+
+def _attn_seq_with_cache(cfg, spec, p, h, cos, sin, ctx: ShardCtx):
+    """Prefill: returns (attn_out, (k_full, v_full))."""
     B, S, _ = h.shape
     q, k, v = _qkv(cfg, p, h, cos, sin)
     window = cfg.window if spec.mixer == SWA else 0
-    out = ops.flash_attention(q, k, v, causal=cfg.causal, window=window, cap=cfg.attn_softcap)
+    out = _prefill_attention(ctx, q, k, v, causal=cfg.causal, window=window,
+                             cap=cfg.attn_softcap)
     return out.reshape(B, S, -1) @ p["wo"], (k, v)
 
 
@@ -220,21 +251,21 @@ def _mla_scale(cfg) -> float:
     return 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
 
 
-def _mla_seq(cfg, p, h, cos, sin) -> torch.Tensor:
+def _mla_seq(cfg, p, h, cos, sin, ctx: ShardCtx) -> torch.Tensor:
     B, S, _ = h.shape
     q, k, v, _, _ = _mla_qkv(cfg, p, h, cos, sin)
     out = L.attention(q, k, v, causal=cfg.causal, window=0, cap=cfg.attn_softcap,
-                      scale=_mla_scale(cfg))
+                      scale=_mla_scale(cfg), direct_threshold=ctx.direct_threshold())
     return out.reshape(B, S, -1) @ p["wo"]
 
 
-def _mla_seq_with_cache(cfg, p, h, cos, sin):
+def _mla_seq_with_cache(cfg, p, h, cos, sin, ctx: ShardCtx):
     """Prefill: returns (attn_out, (ckv, k_rope)), the latent cache; the
-    attention through the flash kernel, v's head dim padded with q's."""
+    flash kernel pads v's head dim with q's."""
     B, S, _ = h.shape
     q, k, v, ckv, k_rope = _mla_qkv(cfg, p, h, cos, sin)
-    out = ops.flash_attention(q, k, v, causal=cfg.causal, window=0, cap=cfg.attn_softcap,
-                              scale=_mla_scale(cfg))
+    out = _prefill_attention(ctx, q, k, v, causal=cfg.causal, window=0,
+                             cap=cfg.attn_softcap, scale=_mla_scale(cfg))
     return out.reshape(B, S, -1) @ p["wo"], (ckv, k_rope[:, :, 0])
 
 
@@ -259,22 +290,22 @@ def _mixer_residual(cfg, x, h, p):
     return x + h
 
 
-def apply_block(cfg, spec: LayerSpec, p, x, cos, sin) -> torch.Tensor:
+def apply_block(cfg, spec: LayerSpec, p, x, cos, sin, ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec.mixer == MAMBA:
-        h = MB.mamba_sequence(p, h, cfg)
+        h = MB.mamba_sequence(p, h, cfg, chunk=ctx.mamba_chunk(h.shape[1]))
     elif spec.mixer == MLA:
-        h = _mla_seq(cfg, p, h, cos, sin)
+        h = _mla_seq(cfg, p, h, cos, sin, ctx)
     else:
-        h = _attn_seq(cfg, spec, p, h, cos, sin)
+        h = _attn_seq(cfg, spec, p, h, cos, sin, ctx)
     x = _mixer_residual(cfg, x, h, p)
     return _mlp_residual(cfg, spec, p, x)
 
 
 # ----------------------------------------------------------------- forward
-def _cast_block(cfg, spec: LayerSpec, p, x, cos, sin) -> torch.Tensor:
+def _cast_block(cfg, spec: LayerSpec, p, x, cos, sin, ctx: ShardCtx) -> torch.Tensor:
     """apply_block on compute-dtype casts of ``p`` (no-ops for compute weights)."""
-    return apply_block(cfg, spec, _cast_block_params(p, cfg.compute_dtype), x, cos, sin)
+    return apply_block(cfg, spec, _cast_block_params(p, cfg.compute_dtype), x, cos, sin, ctx)
 
 
 def _unstacked(params) -> List[List[Dict[str, torch.Tensor]]]:
@@ -290,14 +321,14 @@ def _unstacked(params) -> List[List[Dict[str, torch.Tensor]]]:
 
 
 def _period(cfg: ModelConfig, layers: List[Dict[str, torch.Tensor]], x, cos, sin,
-            remat: str) -> torch.Tensor:
+            ctx: ShardCtx) -> torch.Tensor:
     for spec, p in zip(cfg.layout, layers):
-        if remat == "block" and cfg.period > 1:
+        if ctx.remat == "block" and cfg.period > 1:
             # nested remat, as JAX: a multi-layer period would otherwise hold
             # all its layers' intermediates in the backward working set
-            x = checkpoint(_cast_block, cfg, spec, p, x, cos, sin, use_reentrant=False)
+            x = checkpoint(_cast_block, cfg, spec, p, x, cos, sin, ctx, use_reentrant=False)
         else:
-            x = _cast_block(cfg, spec, p, x, cos, sin)
+            x = _cast_block(cfg, spec, p, x, cos, sin, ctx)
     return x
 
 
@@ -308,9 +339,9 @@ def _layers(cfg: ModelConfig, params, x: torch.Tensor, batch, ctx: ShardCtx) -> 
     cos, sin = _rope_cos_sin(cfg, _positions(cfg, batch, B, S, device=x.device), cfg.qk_dim)
     for layers in _unstacked(params):
         if ctx.remat == "block":  # each period's activations recomputed in backward
-            x = checkpoint(_period, cfg, layers, x, cos, sin, ctx.remat, use_reentrant=False)
+            x = checkpoint(_period, cfg, layers, x, cos, sin, ctx, use_reentrant=False)
         else:
-            x = _period(cfg, layers, x, cos, sin, ctx.remat)
+            x = _period(cfg, layers, x, cos, sin, ctx)
     return x
 
 
@@ -522,7 +553,9 @@ def prefill(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx(),
 
     A Mamba layer runs ``mamba.mamba_prefill``: one scan-kernel launch
     gives its output and its decode state, where JAX computes the state in
-    a second pass (``_mamba_prefill_state``)."""
+    a second pass (``_mamba_prefill_state``).  With ``ctx.plain`` or
+    ``ctx.unroll`` (the dry run) attention and the scan take their plain
+    versions instead of the kernels."""
     x = embed_tokens(cfg, params, batch)
     B, S, _ = x.shape
     cos, sin = _rope_cos_sin(cfg, _positions(cfg, batch, B, S, device=x.device), cfg.qk_dim)
@@ -532,12 +565,13 @@ def prefill(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx(),
             p = _layer(params, i, period)
             h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
             if spec.mixer == MAMBA:
-                h, cch = MB.mamba_prefill(p, h, cfg)
+                h, cch = MB.mamba_prefill(p, h, cfg, chunk=None if ctx.kernels
+                                          else ctx.mamba_chunk(S))
             elif spec.mixer == MLA:
-                h, (ckv, krope) = _mla_seq_with_cache(cfg, p, h, cos, sin)
+                h, (ckv, krope) = _mla_seq_with_cache(cfg, p, h, cos, sin, ctx)
                 cch = {"ckv": ckv, "krope": krope}
             else:
-                h, (k, v) = _attn_seq_with_cache(cfg, spec, p, h, cos, sin)
+                h, (k, v) = _attn_seq_with_cache(cfg, spec, p, h, cos, sin, ctx)
                 if spec.mixer == SWA:
                     w = min(cfg.window, S)
                     k, v = k[:, -w:], v[:, -w:]

@@ -146,6 +146,9 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
 assert not bad, bad
 assert "repro_torch.core.torch_ad" in names and "repro_torch.kernels.moments" in names, names
+assert {"repro_torch.compat", "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+        "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+        "repro_torch.optim.compression"} <= set(names), names
 print("ISOLATED", len(names))
 """
 
@@ -192,7 +195,9 @@ def test_port_sources_import_no_jax_and_nothing_of_repro_at_any_depth():
             "repro_torch.viz.http", "repro_torch.viz.ws", "repro_torch.viz.gateway",
             "repro_torch.lint.model", "repro_torch.lint.callgraph", "repro_torch.lint.rules",
             "repro_torch.lint.baseline", "repro_torch.lint.cli",
-            "repro_torch.lint.__main__"} <= walked
+            "repro_torch.lint.__main__", "repro_torch.compat", "repro_torch.launch.roofline",
+            "repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+            "repro_torch.launch.sharding", "repro_torch.optim.compression"} <= walked
     # the check sees nested imports: a function-level one is caught
     probe = REPO / "src" / "repro_torch" / "trace" / "monitor.py"
     assert "repro_torch.fault.health" in set(_imported_modules(probe))

@@ -336,14 +336,51 @@ def test_donate_false_leaves_the_input_state_untouched():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(seq_shard=True), "item 11"), (dict(probe=True), "item 12"),
+    (dict(seq_shard=True), "item 11"), (dict(seq_shard=True, probe=True), "item 11"),
 ])
 def test_mesh_and_probe_options_raise_naming_their_item(kw, item):
+    """A mesh and ``seq_shard`` wait for item 11; ``probe`` runs since the
+    dry run was ported (item 12), so it raises only beside them."""
     cfg = tconfigs.smoke("gemma-2b")
     with pytest.raises(NotImplementedError, match=item):
         TS.make_shard_ctx(cfg, None, 4, TS.StepOptions(**kw))
     with pytest.raises(NotImplementedError, match="item 11"):
         TS.make_shard_ctx(cfg, object(), 4, TS.StepOptions())
+
+
+def test_probe_option_gives_the_probe_context():
+    """JAX's probe (repro/launch/steps.py:67): unrolled, single-block
+    attention, whole-sequence Mamba chunks; and no kernel in prefill."""
+    cfg = tconfigs.smoke("gemma-2b")
+    ctx = TS.make_shard_ctx(cfg, None, 4, TS.StepOptions(probe=True, remat="none"))
+    assert ctx == TM.ShardCtx(remat="none", unroll=True)
+    assert not ctx.kernels and ctx.direct_threshold() == 1 << 30 and ctx.mamba_chunk(4096) == 4096
+    plain = TS.make_shard_ctx(cfg, None, 4, TS.StepOptions())
+    assert plain.kernels and plain.direct_threshold() == 1024 and plain.mamba_chunk(4096) == 128
+
+
+@pytest.mark.parametrize("call", ["dryrun_mesh_single", "dryrun_cli_multi", "param_shardings",
+                                  "batch_shardings", "cache_shardings", "production_mesh",
+                                  "dp_step_2d_mesh"])
+def test_placements_on_a_mesh_raise_item_11(call):
+    from types import SimpleNamespace
+
+    from repro_torch.launch import dryrun as TDR
+    from repro_torch.launch import mesh as TMESH
+    from repro_torch.launch import sharding as TSH
+
+    cfg = tconfigs.smoke("gemma-2b")
+    calls = {
+        "dryrun_mesh_single": lambda: TDR.run_cell("gemma-2b", "train_4k", "single"),
+        "dryrun_cli_multi": lambda: TDR.main(["--all", "--mesh", "multi"]),
+        "param_shardings": lambda: TSH.param_shardings(cfg, {}, None),
+        "batch_shardings": lambda: TSH.batch_shardings(cfg, {}, None),
+        "cache_shardings": lambda: TSH.cache_shardings(cfg, {}, None),
+        "production_mesh": lambda: TMESH.make_production_mesh(multi_pod=True),
+        "dp_step_2d_mesh": lambda: TS.make_dp_train_step(cfg, SimpleNamespace(ndim=2)),
+    }
+    with pytest.raises(NotImplementedError, match="item 11"):
+        calls[call]()
 
 
 @pytest.mark.parametrize("arch", ["gemma-2b", "falcon-mamba-7b", "jamba-v0.1-52b"])
