@@ -113,8 +113,25 @@ non-zero):
            card vs CPU bitwise, one all-reduce per parameter leaf, the
            reduction's device time; (K-b) mfu beside every timed path and
            the dry run's peak beside the measured one;
+  L        sequence and expert parallelism, over the same NCCL group: (L-a)
+           gemma2-2b at its published width (26 layers, local window 4096,
+           softcaps 50 and 30), 4 prompts of 4608 tokens and 32 greedy
+           steps, once on one device (prefill through the flash kernel at
+           window 4096 and softcap 50), once with attention through the
+           plain version (the baseline), once on a one-rank mesh with
+           seq_shard (the sequence-parallel prefill and the sharded
+           decodes): logits held within the baseline + 2e-2, the greedy
+           choices compared, hidden_states at 4 x 4096 with and without the
+           mesh; times, mfu, peaks, collectives; (L-b) four virtual ranks of
+           each sharded body at full width, one layer each, composed with
+           the model's own local functions and merge code against the
+           unsharded function: falcon-mamba-7b's mixer (the scan kernel per
+           shard from h0 = 0), gemma2-2b's local and global decode attention
+           at positions 4608-4639, minicpm3-4b's sequence-parallel prefill
+           attention and sharded decode, qwen3-moe-30b-a3b's MoE layer (128
+           experts as 4 x 32); device times beside the unsharded calls;
 
-then the script's wall time, the path K JSON line, the card's name and
+then the script's wall time, the path K and path L JSON lines, the card's name and
 power limit, one JSON line describing every ported kernel, and last
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 2 and prints
 no result.
@@ -188,6 +205,8 @@ FLASH_MOE = (4, 1024, 1024, 16, 8, 64, True, 0, 0.0, "bfloat16")  # granite-moe 
 FLASH_MLA = (4, 1024, 1024, 40, 40, 96, True, 0, 0.0, "bfloat16")
 FLASH_MLA_DV = 64
 FLASH_VL = (4, 1024, 1024, 12, 2, 128, True, 0, 0.0, "bfloat16")  # qwen2-vl-2b prefill wave
+# gemma2-2b's prefill in path L-a: 4 x 4608 tokens, past the local layers' window
+FLASH_GEMMA2 = (4, 4608, 4608, 8, 4, 256, True, 4096, 50.0, "bfloat16")
 FLASH_SASS = ("HGMMA", "UTMALDG", "SYNCS", "MUFU", "FFMA", "FMUL", "LDS", "STS", "BAR")
 FLASH_SWEEP = 100  # random shapes: GQA groups, head dims, ragged lengths, masks, dtypes
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:88
@@ -274,6 +293,13 @@ DP = dict(arch="gemma-2b", steps=4, seq=1024, batches=(4, 2, 1), ce_chunk=512,
 # more than 2 lr).
 TRAIN_PARITY = dict(n_layers=2, batch=1, seq=64, loss_rtol=1e-5, grad_norm_rtol=1e-4,
                     params_rtol=1e-4, params_atol=1e-6, params_off_share=1e-4)
+# Path L: sequence and expert parallelism.  L-a serves gemma2-2b at full
+# width twice (one device; a one-rank mesh with seq_shard); L-b composes four
+# virtual ranks of each sharded body at full width, one layer each.
+SEQ_PAR = dict(arch="gemma2-2b", batch=4, prompt_len=4608, max_new=32, hidden_seq=4096)
+SEQ_BODIES = dict(ranks=4, mamba=("falcon-mamba-7b", 4, 1024), decode=("gemma2-2b", 4, 4608, 32),
+                  mla=("minicpm3-4b", 4, 1024, 8), moe=("qwen3-moe-30b-a3b", 4, 1024))
+SEQ_TOL = 2e-2  # the card's bf16 smoke tolerance, beyond the plain-attention baseline (ROADMAP §3)
 SMOKE_TOL = {"float32": dict(rtol=1e-4, atol=1e-3),  # tests/test_torch_models.py:43
              "bfloat16": dict(rtol=2e-2, atol=2e-2)}  # tests/test_torch_models.py:229
 
@@ -952,6 +978,9 @@ def phase_flash(dev, agree: OutputAgreement) -> dict:
     err = compare(f"flash {SERVE_VL} {FLASH_VL}", FLASH_VL, SEED)[-1]
     log(f"flash: {SERVE_VL} attention at one wave {FLASH_VL} (hd 128, GQA 12:2) within 2e-2, "
         f"max abs err {err:.3g}")
+    err = compare(f"flash gemma2-2b {FLASH_GEMMA2}", FLASH_GEMMA2, SEED)[-1]
+    log(f"flash: gemma2-2b's path L-a prefill {FLASH_GEMMA2} (window 4096, softcap 50) within "
+        f"2e-2, max abs err {err:.3g}")
     log(f"flash: every comparison: max abs err {agree.max_abs:.3g}, max rel err "
         f"{agree.max_rel:.3g}")
 
@@ -982,7 +1011,8 @@ def phase_flash(dev, agree: OutputAgreement) -> dict:
                 + ", ".join(f"{op} {n}" for op, n in timing["sass"][hd].items()))
     shapes = {"moe": (SERVE_MOE, flash_timing(dev, FLASH_MOE)),
               "mla": (SERVE_MLA, flash_timing(dev, FLASH_MLA, dv=FLASH_MLA_DV)),
-              "vl": (SERVE_VL, flash_timing(dev, FLASH_VL))}
+              "vl": (SERVE_VL, flash_timing(dev, FLASH_VL)),
+              "gemma2": ("gemma2-2b", flash_timing(dev, FLASH_GEMMA2))}
     for arch, t in shapes.values():
         log_flash_shape(arch, t)
     return {**instances["bfloat16"], "instances": instances,
@@ -995,7 +1025,9 @@ def log_flash_shape(arch: str, t: dict) -> None:
     what = "ops.flash_attention (pads, kernel) and the crop's copy" if t["dv"] != case[5] \
         else "kernel"
     log(f"flash[{arch}]: {case} v {t['dv']}: {what} {t['ms'] * 1e3:.1f} us/call, "
-        f"scaled_dot_product_attention {t['library_ms'] * 1e3:.1f} us (in turns: "
+        f"scaled_dot_product_attention {t['library_ms'] * 1e3:.1f} us"
+        + ("" if t["library_same_function"] else " (causal, no window or softcap)")
+        + " (in turns: "
         + ", ".join(f"{n} {x * 1e3:.1f}" for n, x in zip(
             ("kernel", "sdpa", "sdpa", "kernel"), t["turns_ms"]))
         + f"; max abs diff to the kernel {t['library_max_abs_diff']:.3g}), plain "
@@ -1100,10 +1132,13 @@ def flash_build_facts() -> dict:
 
 
 def flash_timing(dev, case, dv=None) -> dict:
-    """One instance at ``case`` (causal, no window or cap): CUDA-event ms per
-    call in turns with scaled_dot_product_attention (kernel, SDPA, SDPA,
+    """One instance at ``case`` (its mask, window and softcap): CUDA-event ms
+    per call in turns with scaled_dot_product_attention (kernel, SDPA, SDPA,
     kernel), the plain version's ms, host enqueue ms, device ms per launch of
-    the kernel and of SDPA's kernels (torch.profiler) and the bound.  Where
+    the kernel and of SDPA's kernels (torch.profiler) and the bound.  SDPA
+    takes no window or softcap: where the case has one, it computes the
+    causal attention of the same shape (``library_same_function`` False), a
+    yardstick of the shape only.  Where
     the host enqueue exceeds the device time, the CUDA-event time is the
     host's, and the device times are the ones to compare.  With a v head dim
     ``dv`` below q/k's (MLA), the call timed is what the model runs:
@@ -1118,16 +1153,17 @@ def flash_timing(dev, case, dv=None) -> dict:
 
     q, k, v = _flash_inputs(dev, case, SEED, dv)
     dv = v.shape[-1]
+    mask = dict(causal=case[6], window=case[7], cap=case[8])
     if dv == case[5]:
-        launch = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+        launch = lambda: fa.flash_attention(q, k, v, **mask)  # noqa: E731
         checked = (q, k, v)
     else:
-        launch = lambda: ops.flash_attention(q, k, v, causal=True).contiguous()  # noqa: E731
+        launch = lambda: ops.flash_attention(q, k, v, **mask).contiguous()  # noqa: E731
         width = ops.padded_head_dim(case[5])
         checked = tuple(F.pad(t, (0, width - t.shape[-1])) for t in (q, k, v))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # (B, heads, S, hd)
     library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=True)
+        qt, kt, vt, is_causal=case[6], enable_gqa=True)
     lib_diff = float((library().transpose(1, 2).float() - launch().float()).abs().max())
     turns = [cuda_ms(fn, iters=20) for fn in (launch, library, library, launch)]
     return {
@@ -1135,8 +1171,9 @@ def flash_timing(dev, case, dv=None) -> dict:
         "dv": dv,
         "ms": (turns[0] + turns[3]) / 2,
         "library_ms": (turns[1] + turns[2]) / 2,
+        "library_same_function": case[7] == 0 and case[8] == 0.0,
         "turns_ms": turns,
-        "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True), iters=5),
+        "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v, **mask), iters=5),
         "host_ms": host_ms(launch, iters=20),
         "host_check_ms": host_ms(lambda: fa._check(*checked), iters=200),  # part of host_ms
         "device_ms": device_ms_by_kernel(launch, iters=5),
@@ -2814,6 +2851,491 @@ def phase_dp(dev) -> dict:
 
 
 # --------------------------------------------------------------------- main
+# ------------------------------------------------------------- path L
+def _stacked(parts):
+    """Four virtual ranks' (acc, m, l) partials -> merged attention, by the
+    model's own merge (models.model.merge_partials) over a stacked rank axis."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    acc, m, l = (torch.stack(t) for t in zip(*parts))
+    return M.merge_partials(acc, m, l, lambda t: t.amax(0, keepdim=True),
+                            lambda t: t.sum(0, keepdim=True))[0]
+
+
+def _held(tag: str, what: str, got, want, rtol: float, atol: float) -> float:
+    """Elementwise |got - want| <= atol + rtol |want|, else raise; -> max abs diff."""
+    err = (got.float() - want.float()).abs()
+    if bool((err > atol + rtol * want.float().abs()).any()):
+        raise AssertionError(f"{tag}: {what} beyond rtol {rtol} atol {atol}: max abs diff "
+                             f"{float(err.max()):.4g}")
+    return float(err.max())
+
+
+def _device_ms(fn) -> float:
+    """Device ms of one call (torch.profiler), or nan where none was recorded."""
+    by_kernel, _, _ = profiled(fn, 1)
+    return sum(ms for ms, _ in by_kernel.values()) if by_kernel else float("nan")
+
+
+def _one_period(arch: str, dev):
+    """``arch``'s published config and the bf16 compute weights of one
+    period (its first layers), drawn from SEED on the card."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models.common import init_params
+
+    cfg = configs.get_config(arch)
+    one = dataclasses.replace(cfg, n_layers=cfg.period)
+    layers = M.compute_params(one, init_params(one, SEED, dev))["layers"]
+    return cfg, [{k: v[0] for k, v in layer.items()} for layer in layers]
+
+
+def _bf16(dev, gen, *shape, scale=1.0):
+    import torch
+
+    return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+
+def seq_parallel_model(dev, ranks: int = 1) -> dict:
+    """Path L-a: SEQ_PAR["arch"] at its published width (random weights from
+    SEED), SEQ_PAR["batch"] prompts of SEQ_PAR["prompt_len"] tokens and
+    SEQ_PAR["max_new"] greedy tokens, run (a) on one device, prefill through
+    the flash kernel; (b) the same with attention through the plain version,
+    teacher-forced with (a)'s tokens: the baseline of the card's bf16
+    arithmetic; (c) on a (1, ``ranks``) mesh over the open process group
+    (every rank runs this) with seq_shard, prefill and decode through the
+    sharded bodies, teacher-forced alike.  (c)'s logits (prefill's last
+    position, every decode step) may not differ from (a)'s by more than
+    (b)'s largest difference + SEQ_TOL; its
+    own greedy choices are compared with (a)'s tokens.  Then hidden_states
+    at SEQ_PAR["hidden_seq"] with and without the mesh, within SEQ_TOL.
+    Times (CUDA events), mfu, peaks and the collectives per step."""
+    import torch
+
+    from repro_torch import compat, configs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import model as M
+    from repro_torch.models.common import init_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch, B, S, n_new = (SEQ_PAR[k] for k in ("arch", "batch", "prompt_len", "max_new"))
+    tag = f"seq_parallel[{arch}]"
+    cfg = configs.get_config(arch)
+    V = cfg.vocab
+    params = M.compute_params(cfg, init_params(cfg, SEED, dev))  # the float32 masters go
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, V, (B, S), generator=gen, device=dev, dtype=torch.int32)
+    max_seq = S + n_new
+    mesh = compat.make_mesh((1, ranks), ("data", "model"), device=dev)
+    meshed = TS.make_shard_ctx(cfg, mesh, B, TS.StepOptions(seq_shard=True))
+    one = M.ShardCtx()
+    if ranks > 1:
+        tag += f" rank {meshed.model_rank} of {ranks}"
+
+    def run(ctx, forced=None):
+        """-> (logits (B, 1 + n_new, V) on the host, own greedy tokens, decode ms/step, peak)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        logits, cache = M.prefill(cfg, params, {"tokens": toks}, ctx, max_seq=max_seq)
+        outs, own = [logits[:, -1, :V].float().cpu()], [logits[:, -1, :V].argmax(-1)]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(n_new):
+            feed = (own[-1] if forced is None else forced[:, i].to(dev))[:, None].to(torch.int32)
+            logits, cache = M.decode_step(cfg, params, cache, feed, ctx)
+            outs.append(logits[:, 0, :V].float().cpu())
+            own.append(logits[:, 0, :V].argmax(-1))
+        end.record()
+        end.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        del cache, logits
+        return (torch.stack(outs, 1), torch.stack(own, 1).cpu(), start.elapsed_time(end) / n_new,
+                peak)
+
+    flash_before = read_counts()["flash_attention"]
+    la, ta, dec_a, peak_a = run(one)
+    flash_run = read_counts()["flash_attention"] - flash_before
+    if flash_run != cfg.n_layers:
+        raise AssertionError(f"{tag}: the unsharded prefill launched flash {flash_run} times, "
+                             f"not once per layer ({cfg.n_layers})")
+    kernel = ops._fa.flash_attention
+    ops._fa.flash_attention = flash_attention_ref
+    try:
+        lb, _, _, _ = run(one, forced=ta)
+    finally:
+        ops._fa.flash_attention = kernel
+    before = read_counts()
+    lc, tc, dec_c, peak_c = run(meshed, forced=ta)
+    if read_counts() != before:
+        raise AssertionError(f"{tag}: the meshed run launched a port kernel: {read_counts()}")
+    for name, lg in (("unsharded", la), ("plain", lb), ("meshed", lc)):
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{tag}: non-finite logits in the {name} run")
+    base = float((lb - la).abs().max())
+    err = float((lc - la).abs().max())
+    if err > base + SEQ_TOL:
+        raise AssertionError(f"{tag}: meshed vs one-device logits max abs diff {err:.4g} exceeds "
+                             f"the plain-attention baseline {base:.4g} by more than {SEQ_TOL}")
+    differ = (tc != ta).any(0)
+    first = int(differ.float().argmax()) if bool(differ.any()) else None
+    by_step = (lc - la).abs().amax(dim=(0, 2))
+    log(f"{tag}: full width ({cfg.n_params():,} parameters), {B} x {S} prompt tokens (window "
+        f"{cfg.window}), {n_new} greedy steps; (a) one device, flash in prefill ({flash_run} "
+        f"launches), (b) plain attention, (c) a (1, {ranks}) mesh with seq_shard, sharded "
+        f"prefill and decode (no port kernel), (b) and (c) fed (a)'s tokens: logits (prefill's "
+        f"last position and {n_new} steps) (c) vs (a) max abs diff {err:.4g} (largest at step "
+        f"{int(by_step.argmax())}; prefill {float(by_step[0]):.4g}), (b) vs (a) {base:.4g}: held "
+        f"within the baseline + {SEQ_TOL}; (c)'s greedy choices "
+        + ("all equal to (a)'s" if first is None else
+           f"first differ from (a)'s at step {first} ({int(differ.sum())} of {n_new + 1} steps)")
+        + f"; largest logit {float(la.abs().max()):.4g}")
+    del la, lb, lc
+
+    prefill_ms = {}
+    for name, ctx in (("one_device", one), ("meshed", meshed)):
+        prefill_ms[name] = cuda_ms(lambda ctx=ctx: M.prefill(cfg, params, {"tokens": toks}, ctx,
+                                                             max_seq=max_seq), iters=2, warmup=1)
+    rec = compat.CollectiveRecorder()
+    with rec:
+        _, cache = M.prefill(cfg, params, {"tokens": toks}, meshed, max_seq=max_seq)
+    coll_prefill = R.collective_bytes(rec.collectives)
+    rec = compat.CollectiveRecorder()
+    with rec:
+        M.decode_step(cfg, params, cache, toks[:, :1], meshed)
+    coll_decode = R.collective_bytes(rec.collectives)
+    del cache
+    hs = SEQ_PAR["hidden_seq"]
+    rows = slice(meshed.model_rank * hs // ranks, (meshed.model_rank + 1) * hs // ranks)
+    h1 = M.hidden_states(cfg, params, {"tokens": toks[:, :hs]})[:, rows]
+    h2 = M.hidden_states(cfg, params, {"tokens": toks[:, :hs]}, meshed)  # the rank's rows
+    h_err = _held(tag, f"hidden_states at {B} x {hs}, mesh vs one device", h2, h1, SEQ_TOL, SEQ_TOL)
+    h_equal = bool(torch.equal(h1, h2))
+    del h1, h2
+    out = {"ranks": ranks, "max_abs_diff": err, "baseline_max_abs_diff": base,
+           "first_divergence": first,
+           "hidden_max_abs_diff": h_err, "hidden_bitwise_equal": h_equal,
+           "flash_launches": flash_run, "collectives": {"prefill": coll_prefill,
+                                                        "decode_step": coll_decode}}
+    for name, dec, peak in (("one_device", dec_a, peak_a), ("meshed", dec_c, peak_c)):
+        out[name] = {"prefill_ms": prefill_ms[name], "decode_ms": dec, "peak_bytes": peak,
+                     "prefill_mfu": R.mfu(cfg, "prefill", B, S, prefill_ms[name] / 1e3),
+                     "decode_mfu": R.mfu(cfg, "decode", B, S, dec / 1e3)}
+        o = out[name]
+        log(f"{tag}: {name}: prefill {o['prefill_ms']:.2f} ms per wave of {B} x {S} (mfu "
+            f"{o['prefill_mfu']:.4f}), decode {dec:.2f} ms per step (mfu {o['decode_mfu']:.5f}), "
+            f"peak memory {peak / 1e9:.3f} GB")
+    for what, coll in (("prefill", coll_prefill), ("decode step", coll_decode)):
+        log(f"{tag}: meshed {what} collectives (roofline.collective_bytes): " + ", ".join(
+            f"{op} {int(c['count'])} ({c['result_bytes'] / 1e6:.2f} MB)"
+            for op, c in coll.items() if c["count"]))
+    log(f"{tag}: hidden_states at {B} x {hs}, mesh vs one device: max abs diff {h_err:.4g} "
+        f"(within {SEQ_TOL}), bitwise equal {h_equal}")
+    del params
+    return out
+
+
+def seq_parallel_bodies(dev) -> dict:
+    """Path L-b: each sharded body at full width, one layer's bf16 weights
+    from SEED, composed for SEQ_BODIES["ranks"] virtual ranks in one process
+    with the model's own local functions and merge code, held against the
+    unsharded function on the same inputs (elementwise within rtol = atol =
+    SEQ_TOL in bf16; Mamba's float32 state within rtol 1e-3, atol 1e-4 of
+    its largest element), and the device time (torch.profiler) of the
+    four ranks' bodies beside the unsharded call's:
+
+      (i)   the Mamba mixer, four shards each scanning with the scan kernel
+            from h0 = 0, against mamba_prefill's output and state on both
+            of its scan routes (the kernel; the chunked plain scan); the
+            kernel at each shard's shape against mamba_scan_ref on the
+            shard's own a, b and C; the scan's launches held against its
+            wrapper's counter (profiled);
+      (ii)  decode attention of a local and a global layer at positions
+            after the prompt, over a cache split four ways, against
+            _attn_decode, and the cache blocks after it;
+      (iii) MLA's sequence-parallel prefill attention against
+            layers.attention, and its sharded decode against _mla_decode;
+      (iv)  the MoE layer as four ranks of E/4 experts, summed in rank
+            order, against moe_block(ep=None)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import mamba_scan as ms_mod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import mamba_scan_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba as MB
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+
+    n = SEQ_BODIES["ranks"]
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    # (i) the Mamba mixer
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch, B, S = SEQ_BODIES["mamba"]
+    tag = f"seq_parallel[{arch} mixer]"
+    cfg, (p,) = _one_period(arch, dev)
+    K, S_loc, chunk = cfg.ssm_d_conv, S // n, 128
+    u = _bf16(dev, gen, B, S, cfg.d_model)
+
+    def mixer():
+        xs, zs = zip(*((u[:, r * S_loc:(r + 1) * S_loc] @ p["in_proj"]).chunk(2, dim=-1)
+                       for r in range(n)))
+        tails = [x[:, -(K - 1):] for x in xs]
+        parts = [MB.seq_shard_scan(p, xs[r], tails[r - 1] if r else torch.zeros_like(tails[0]),
+                                   cfg, chunk, kernel=True) for r in range(n)]
+        pairs = [part[-1] for part in parts]
+        y = torch.cat([MB.seq_shard_output(p, parts[r][0], zs[r], *parts[r][1:5],
+                                           MB.prefix_state(pairs, r), chunk, u.dtype)
+                       for r in range(n)], dim=1)
+        return y, MB.prefix_state(pairs, n), tails[-1]
+
+    before = read_counts()["mamba_scan"]
+    y, h, conv = mixer()
+    if read_counts()["mamba_scan"] - before != n:
+        raise AssertionError(f"{tag}: {n} shards launched the scan "
+                             f"{read_counts()['mamba_scan'] - before} times")
+    errs = {}
+    # against the unsharded mixer on both scan routes: the kernel's, and the
+    # chunked plain scan's, which runs no kernel
+    for route, c in (("kernel", None), ("plain", chunk)):
+        want_y, want = MB.mamba_prefill(p, u, cfg, chunk=c)
+        h_top = float(want["h"].abs().max())
+        errs[route] = (_held(tag, f"y ({route} mamba_prefill)", y, want_y, SEQ_TOL, SEQ_TOL),
+                       _held(tag, f"final state ({route} mamba_prefill)", h, want["h"], 1e-3,
+                             1e-4 * h_top))
+        if not torch.equal(conv, want["conv"]):
+            raise AssertionError(f"{tag}: the conv state differs from mamba_prefill's")
+        del want_y, want
+    del y, h, conv
+    # each shard's scan at the shape this path gives the kernel, on the
+    # shard's own a, b and C, against the plain version (SCAN_TOL; h_last
+    # bitwise, as phase_scan holds it); these launches are not the path's
+    counted = ms_mod.launches
+    scan_err = 0.0
+    xs = [(u[:, r * S_loc:(r + 1) * S_loc] @ p["in_proj"]).chunk(2, dim=-1)[0] for r in range(n)]
+    for r in range(n):
+        left = xs[r - 1][:, -(K - 1):] if r else torch.zeros_like(xs[0][:, :K - 1])
+        xc = L.silu(MB.causal_conv1d(xs[r], p["conv_w"], p["conv_b"], left))
+        dt, Bm, Cm, A = MB._project(p, xc, cfg)
+        a, b = MB._scan_elements(dt, xc, Bm, A)
+        y_k, h_k = ops.mamba_scan(a, b, Cm.float())
+        y_p, h_p = mamba_scan_ref(a, b, Cm.float())
+        scan_err = max(scan_err, _held(tag, f"shard {r} scan y {tuple(a.shape)}", y_k, y_p,
+                                       SCAN_TOL, SCAN_TOL))
+        if not torch.equal(h_k, h_p):
+            raise AssertionError(f"{tag}: shard {r}'s h_last differs from the plain scan's")
+        del a, b, y_k, h_k, y_p, h_p
+    ms_mod.launches = counted
+    shard_shape = (B, S_loc, cfg.d_inner, cfg.ssm_d_state)
+    del xs
+    ms, ref_ms = _device_ms(mixer), _device_ms(lambda: MB.mamba_prefill(p, u, cfg))
+    (y_err, h_err), (y_plain, h_plain) = errs["kernel"], errs["plain"]
+    out["mamba"] = {"max_abs_diff": y_err, "state_max_abs_diff": h_err,
+                    "plain_route_max_abs_diff": y_plain, "plain_route_state_max_abs_diff": h_plain,
+                    "shard_scan_max_abs_err": scan_err, "shard_scan_shape": shard_shape,
+                    "device_ms": ms, "unsharded_device_ms": ref_ms, "scan_launches_per_call": n}
+    log(f"{tag}: d {cfg.d_model}, d_inner {cfg.d_inner}, {B} x {S} tokens as {n} shards of "
+        f"{S_loc}, each scanned by the kernel from h0 = 0 ({n} launches, the profiler's count "
+        f"equal to the wrapper's): y within rtol = atol = {SEQ_TOL} of mamba_prefill through "
+        f"the kernel (max abs diff {y_err:.4g}) and through the chunked plain scan ({y_plain:.4g}), "
+        f"the prefix-combined state within rtol 1e-3, atol 1e-4 of its largest element (max abs "
+        f"diff {h_err:.4g} and {h_plain:.4g}), the conv state bitwise; each shard's kernel scan "
+        f"at {shard_shape} within rtol = atol = {SCAN_TOL} of mamba_scan_ref on the same a, b "
+        f"and C (max abs err {scan_err:.3g}, h_last bitwise); device {ms:.3f} ms for the {n} "
+        f"shards against {ref_ms:.3f} ms unsharded")
+    del p, u
+
+    # (ii) decode attention, a local and a global layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch, B, S, steps = SEQ_BODIES["decode"]
+    cfg, layers = _one_period(arch, dev)
+    out["decode"] = {}
+    for spec, p in zip(cfg.layout, layers):
+        tag = f"seq_parallel[{arch} {spec.mixer} decode]"
+        Sc = M._cache_len(cfg, spec, S + steps)
+        kpos = torch.full((Sc,), -1, dtype=torch.int32, device=dev)
+        past = torch.arange(max(0, S - Sc), S, device=dev, dtype=torch.int32)
+        kpos[past % Sc] = past
+        full = {"k": _bf16(dev, gen, B, Sc, cfg.n_kv_heads, cfg.head_dim),
+                "v": _bf16(dev, gen, B, Sc, cfg.n_kv_heads, cfg.head_dim), "kpos": kpos}
+        blocks = [{k: (t[r * Sc // n:(r + 1) * Sc // n] if k == "kpos" else
+                       t[:, r * Sc // n:(r + 1) * Sc // n]).clone() for k, t in full.items()}
+                  for r in range(n)]
+
+        def step(pos, h, p=p, spec=spec, blocks=blocks):
+            cos, sin = M._rope_cos_sin(cfg, torch.full((B, 1), pos, device=dev), cfg.qk_dim)
+            q, k, v = M._qkv(cfg, p, h, cos, sin)
+            merged = _stacked([M.attn_decode_partial(cfg, spec, q, k, v, blocks[r], pos, r, n)
+                               for r in range(n)])
+            return M._heads_out(merged, h.dtype) @ p["wo"], cos, sin
+
+        err = 0.0
+        for pos in range(S, S + steps):
+            h = _bf16(dev, gen, B, 1, cfg.d_model)
+            got, cos, sin = step(pos, h)
+            want = M._attn_decode(cfg, spec, p, h, full, pos, cos, sin)
+            err = max(err, _held(tag, f"position {pos}", got, want, SEQ_TOL, SEQ_TOL))
+        for r in range(n):
+            for k, t in full.items():
+                blk = t[r * Sc // n:(r + 1) * Sc // n] if k == "kpos" else \
+                    t[:, r * Sc // n:(r + 1) * Sc // n]
+                if not torch.equal(blocks[r][k], blk):
+                    raise AssertionError(f"{tag}: rank {r}'s {k} block differs from the cache's")
+        last = S + steps - 1
+        ms = _device_ms(lambda: step(last, h))
+        cos, sin = M._rope_cos_sin(cfg, torch.full((B, 1), last, device=dev), cfg.qk_dim)
+        ref_ms = _device_ms(lambda: M._attn_decode(cfg, spec, p, h, full, last, cos, sin))
+        out["decode"][spec.mixer] = {"max_abs_diff": err, "slots": Sc, "device_ms": ms,
+                                     "unsharded_device_ms": ref_ms}
+        log(f"{tag}: {B} sequences, positions {S}-{last} (ring slots {S % Sc}-{last % Sc} of "
+            f"{Sc}), the cache split {n} ways ({Sc // n} slots each): within rtol = atol = "
+            f"{SEQ_TOL} of _attn_decode (max abs diff {err:.4g}), each rank's block the cache's; "
+            f"device {ms:.3f} ms for the {n} ranks and the merge against {ref_ms:.3f} ms")
+        del full, blocks
+    del layers
+
+    # (iii) MLA: sequence-parallel prefill attention, sharded decode
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch, B, S, steps = SEQ_BODIES["mla"]
+    tag = f"seq_parallel[{arch} MLA]"
+    cfg, (p,) = _one_period(arch, dev)
+    h = _bf16(dev, gen, B, S, cfg.d_model)
+    cos, sin = M._rope_cos_sin(cfg, M._positions(cfg, {}, B, S, device=dev), cfg.qk_dim)
+    q, k, v, ckv, k_rope = M._mla_qkv(cfg, p, h, cos, sin)
+    S_loc = S // n
+    kw = dict(causal=cfg.causal, window=0, cap=cfg.attn_softcap, scale=M._mla_scale(cfg))
+    kb, vb = list(k.split(S_loc, dim=1)), list(v.split(S_loc, dim=1))
+
+    def prefill_attention():
+        return torch.cat([M.seq_attention_local(q[:, r * S_loc:(r + 1) * S_loc], kb, vb, r, **kw)[0]
+                          for r in range(n)], dim=1)
+
+    want_attn = L.attention(q, k, v, **kw)
+    a_err = _held(tag, "prefill attention", prefill_attention(), want_attn, SEQ_TOL, SEQ_TOL)
+    a_ms, a_ref = _device_ms(prefill_attention), _device_ms(lambda: L.attention(q, k, v, **kw))
+    max_seq = S + steps
+    full = {name: F.pad(t, (0, 0, 0, steps))  # the latent cache, zero slots for the steps
+            for name, t in (("ckv", ckv), ("krope", k_rope[:, :, 0]))}
+    blocks = [{name: t[:, r * max_seq // n:(r + 1) * max_seq // n].clone()
+               for name, t in full.items()} for r in range(n)]
+
+    def mla_step(pos, x):
+        cs, sn = M._rope_cos_sin(cfg, torch.full((B, 1), pos, device=dev), cfg.qk_dim)
+        q_eff, q_rope, c_new, k_new = M.mla_decode_query(cfg, p, x, cs, sn)
+        lat = _stacked([M.mla_decode_partial(cfg, q_eff, q_rope, c_new, k_new, blocks[r], pos, r)
+                        for r in range(n)]).transpose(1, 2)
+        return M.mla_latent_out(cfg, p, lat, x.dtype), cs, sn
+
+    d_err = 0.0
+    for pos in range(S, S + steps):
+        x = _bf16(dev, gen, B, 1, cfg.d_model)
+        got, cs, sn = mla_step(pos, x)
+        want = M._mla_decode(cfg, p, x, full, pos, cs, sn)
+        d_err = max(d_err, _held(tag, f"decode at position {pos}", got, want, SEQ_TOL, SEQ_TOL))
+    d_ms = _device_ms(lambda: mla_step(S + steps - 1, x))
+    d_ref = _device_ms(lambda: M._mla_decode(cfg, p, x, full, S + steps - 1, cs, sn))
+    out["mla"] = {"prefill_max_abs_diff": a_err, "prefill_device_ms": a_ms,
+                  "prefill_unsharded_device_ms": a_ref, "decode_max_abs_diff": d_err,
+                  "decode_device_ms": d_ms, "decode_unsharded_device_ms": d_ref}
+    log(f"{tag}: prefill attention at {B} x {S} (H {cfg.n_heads}, qk "
+        f"{cfg.qk_nope_dim + cfg.qk_rope_dim}, v {cfg.v_head_dim}) as {n} query shards with "
+        f"offsets against layers.attention: max abs diff {a_err:.4g}, device {a_ms:.3f} ms "
+        f"against {a_ref:.3f} ms; {steps} decode steps at positions {S}-{S + steps - 1} over the "
+        f"latent cache split {n} ways against _mla_decode: max abs diff {d_err:.4g}, device "
+        f"{d_ms:.3f} ms for the {n} ranks and the merge against {d_ref:.3f} ms; both within "
+        f"rtol = atol = {SEQ_TOL}")
+    del p, h, q, k, v, ckv, k_rope, kb, vb, full, blocks, want_attn
+
+    # (iv) the MoE layer, experts over four ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch, B, S = SEQ_BODIES["moe"]
+    tag = f"seq_parallel[{arch} MoE]"
+    cfg, (p,) = _one_period(arch, dev)
+    E, e_loc = cfg.moe_experts, cfg.moe_experts // n
+    x = _bf16(dev, gen, B, S, cfg.d_model)
+    ranks = [{"router": p["router"],
+              **{k: p[k][r * e_loc:(r + 1) * e_loc] for k in MOE.EXPERT_KEYS}} for r in range(n)]
+
+    def experts():
+        total = MOE.moe_local(ranks[0], x, cfg, 0)
+        for r in range(1, n):
+            total = total + MOE.moe_local(ranks[r], x, cfg, r * e_loc)
+        return total
+
+    want = MOE.moe_block({k: p[k] for k in MOE.KEYS}, x, cfg)
+    err = _held(tag, "output", experts(), want, SEQ_TOL, SEQ_TOL)
+    ms = _device_ms(experts)
+    ref_ms = _device_ms(lambda: MOE.moe_block({k: p[k] for k in MOE.KEYS}, x, cfg))
+    n_moe = sum(p[k].numel() for k in MOE.KEYS)
+    out["moe"] = {"max_abs_diff": err, "device_ms": ms, "unsharded_device_ms": ref_ms,
+                  "parameters": n_moe}
+    log(f"{tag}: {E} experts top-{cfg.moe_topk}, d {cfg.d_model}, dff {cfg.moe_dff} "
+        f"({n_moe:,} parameters, {2 * n_moe / 1e9:.2f} GB bf16) on {B} x {S} tokens as {n} "
+        f"ranks of {e_loc} experts summed in rank order: within rtol = atol = {SEQ_TOL} of "
+        f"moe_block(ep=None) (max abs diff {err:.4g}); device {ms:.3f} ms for the {n} ranks "
+        f"against {ref_ms:.3f} ms")
+    del p, x, ranks, want
+    return out
+
+
+def _l_rank(rank: int, n: int, tmp: str) -> None:
+    """One rank of ``seq_parallel_ranks``: its card, the NCCL process group,
+    path L-a on a (1, n) mesh; its result as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=rank, world_size=n)
+    try:
+        out = seq_parallel_model(dev, ranks=n)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{tmp}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def seq_parallel_ranks(n: int) -> list:
+    """``python3 chip_smoke.py --l-ranks N``: path L-a with its meshed run on
+    a (1, N) mesh across N cards of one host, one spawned process per card
+    (NCCL); each rank also runs the one-device and plain baselines on its
+    own card.  -> every rank's result."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_l_rank, args=(n, tmp), nprocs=n, start_method="spawn")
+        results = []
+        for r in range(n):
+            with open(f"{tmp}/rank{r}.json") as f:
+                results.append(json.load(f))
+    return results
+
+
+def phase_seq_parallel(dev) -> dict:
+    """Path L (see the module docstring): L-a, then L-b; every count set to 0
+    before and read after."""
+    zero_counts()
+    model = seq_parallel_model(dev)
+    bodies = seq_parallel_bodies(dev)
+    counts = read_counts()
+    for name in ("flash_attention", "mamba_scan"):
+        if counts[name] <= 0:
+            raise AssertionError(f"path L never launched {name}: {counts}")
+    return {"counts": counts, "model": model, "bodies": bodies}
+
+
 def main() -> int:
     import torch
 
@@ -2822,6 +3344,20 @@ def main() -> int:
         print("chip_smoke: torch finds no CUDA device; run this on a machine with a GPU",
               file=sys.stderr)
         return 2
+    if "--l-ranks" in sys.argv:  # path L-a across cards: python3 chip_smoke.py --l-ranks 4
+        n = int(sys.argv[sys.argv.index("--l-ranks") + 1])
+        if torch.cuda.device_count() < n:
+            raise AssertionError(f"--l-ranks {n} needs {n} cards, "
+                                 f"found {torch.cuda.device_count()}")
+        env = phase_env()
+        results = seq_parallel_ranks(n)
+        log(f"wall {time.perf_counter() - t_start:.1f} s")
+        log(json.dumps({"path_l_ranks": results, "power": env["smi"]}))
+        log(env["smi"])
+        log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                               "kind": torch.cuda.get_device_name(0),
+                                               "count": torch.cuda.device_count()}}))
+        return 0
     import torch.distributed as dist
 
     from repro_torch.device import default_device
@@ -2858,6 +3394,7 @@ def main() -> int:
             trained_socket = phase_train_socket(dev, trained)
             trained_audio = phase_train_audio(dev)
             dp = phase_dp(dev)
+            seq = phase_seq_parallel(dev)
         finally:
             dist.destroy_process_group()
     train_cell = lambda arch: dry[(  # noqa: E731
@@ -2890,14 +3427,15 @@ def main() -> int:
              "serve_mla": served_mla["counts"], "serve_vl": served_vl["counts"],
              "train": trained["counts"], "train_socket": trained_socket["counts"],
              "train_audio": trained_audio["counts"], "dryrun": dry_counts,
-             "train_dp": dp["counts"]}
-    needs = {"trace": "moments_and_labels", "width": "moments_and_labels",
-             "serve": "flash_attention", "serve_ssm": "mamba_scan",
-             "serve_moe": "flash_attention", "serve_mla": "flash_attention",
-             "serve_vl": "flash_attention"}
-    for path, name in needs.items():
-        if paths[path][name] <= 0:
-            raise AssertionError(f"main path {path} never launched {name}: {paths[path]}")
+             "train_dp": dp["counts"], "seq_parallel": seq["counts"]}
+    needs = {"trace": ("moments_and_labels",), "width": ("moments_and_labels",),
+             "serve": ("flash_attention",), "serve_ssm": ("mamba_scan",),
+             "serve_moe": ("flash_attention",), "serve_mla": ("flash_attention",),
+             "serve_vl": ("flash_attention",), "seq_parallel": ("flash_attention", "mamba_scan")}
+    for path, names in needs.items():
+        for name in names:
+            if paths[path][name] <= 0:
+                raise AssertionError(f"main path {path} never launched {name}: {paths[path]}")
     for path in ("dryrun", "train_dp"):  # path K runs the plain versions, as JAX's probe
         if any(paths[path].values()):
             raise AssertionError(f"path {path} launched a port kernel: {paths[path]}")
@@ -2971,6 +3509,8 @@ def main() -> int:
         "moe_shape": shape_numbers(flash["moe"]),
         "mla_shape": shape_numbers(flash["mla"]),
         "vl_shape": shape_numbers(flash["vl"]),
+        "gemma2_shape": {**shape_numbers(flash["gemma2"]),
+                         "library_same_function": flash["gemma2"]["library_same_function"]},
         "serve_moe": {**serve_numbers(served_moe), "smoke": served_moe["smoke"],
                       "viz": served_moe["viz"], "prefill_classes": served_moe["prefill_classes"],
                       "moe_block_ms": served_moe["moe_block_ms"],
@@ -2997,6 +3537,7 @@ def main() -> int:
         "device_ms": scan["device_ms"],
         "h_last_bitwise_equal": True,  # phase_scan raised otherwise
         "serve_ssm": serve_numbers(served_ssm),
+        "seq_parallel_mixer": seq["bodies"]["mamba"],
     }]
     log(f"trace precision {trace['precision']:.4f} recall {trace['recall']:.4f}; "
         f"build {env['build_s']:.2f} s; wall {time.perf_counter() - t_start:.1f} s")
@@ -3011,6 +3552,8 @@ def main() -> int:
         "roofline": roofline, "power": env["smi"],
         "dp": {k: dp[k] for k in ("batch", "seq", "why", "predicted_peak", "runs", "ref_loss",
                                   "quant_max_ratio", "reduce_pass_ms", "compress_added_ms")}}}))
+    log(json.dumps({"path_l": {"model": seq["model"], "bodies": seq["bodies"],
+                               "counts": seq["counts"], "power": env["smi"]}}))
     log(env["smi"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,9 @@ is ``{"params", "m", "v", "step"}`` and, with a float32 master beside bf16
 params, ``"master"``, as ``launch.steps.make_train_state`` makes it in
 both packages.  The data-parallel step's error-feedback state
 (:func:`error_state_from_jax`) is stacked over devices in JAX and held per
-rank in the port.
+rank in the port.  A global array and its spec under ``launch.sharding``'s
+rules give any rank's block on a mesh (:func:`block_from_jax`): the expert
+leaves and the caches each rank holds.
 
 Stats tables:
 
@@ -31,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Sequence
 
 from .core import stats as _host
 from .core.torch_ad import NCOLS
@@ -153,3 +155,30 @@ def error_state_from_jax(err, rank: int, *, device=None) -> Any:
         return torch.from_numpy(np.array(arr[rank], dtype=np.float32)).to(device)
 
     return _tree_map(leaf, err)
+
+
+# ----------------------------------------------------------------- mesh blocks
+def block_from_jax(arr, spec, mesh_shape: Sequence[int], axis_names: Sequence[str],
+                   rank: int) -> np.ndarray:
+    """Rank ``rank``'s block of a global array (numpy) on a mesh of
+    ``mesh_shape`` with dims ``axis_names``, ranks laid out row-major over
+    the dims as ``init_device_mesh`` lays them.  ``spec`` is a
+    ``PartitionSpec`` as ``launch.sharding``'s rules give it, one entry per
+    leading dim: None, an axis name, or a tuple of names split major to
+    minor.  A copy."""
+    arr = np.asarray(arr)
+    if len(spec) > arr.ndim:
+        raise ValueError(f"spec {spec} has more entries than the array's {arr.ndim} dims")
+    coord = dict(zip(axis_names, np.unravel_index(rank, tuple(mesh_shape))))
+    size = dict(zip(axis_names, mesh_shape))
+    index = []
+    for dim, entry in enumerate(spec):
+        axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        n, i = 1, 0
+        for a in axes:
+            n, i = n * size[a], i * size[a] + int(coord[a])
+        if arr.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {arr.shape} does not split {n} ways ({spec})")
+        step = arr.shape[dim] // n
+        index.append(slice(i * step, (i + 1) * step))
+    return arr[tuple(index)].copy()

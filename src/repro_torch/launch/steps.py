@@ -10,8 +10,10 @@ JAX donates it (``donate=False`` works on a copy instead).
 device (shapes and dtypes, no data), which ``launch.dryrun`` runs under
 the counting context; :func:`make_dp_train_step` is JAX's ``shard_map``
 data-parallel step with its collectives written out in
-``torch.distributed``.  Meshes with parameter placements, FSDP and
-sequence parallelism wait for ROADMAP.md queue 1, item 11.
+``torch.distributed``.  :func:`make_shard_ctx` takes a mesh: prefill and
+decode then run sequence and expert parallelism over its model axis
+(``models.model.ShardCtx``).  Train steps and cells on a mesh (gradients,
+parameter placements, FSDP) wait for ROADMAP.md queue 1, item 11.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from ..models import model as M
 from ..models.common import ModelConfig, init_params, param_shapes
 from ..models.model import ShardCtx
 from ..optim.adamw import OptConfig, apply_updates, init_opt_state
+from .mesh import batch_axes as mesh_batch_axes, batch_shards
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,11 +64,21 @@ def auto_microbatch(cfg: ModelConfig, global_batch: int, seq: int, dp: int) -> i
 
 
 def make_shard_ctx(cfg: ModelConfig, mesh, global_batch: int, opts: StepOptions) -> ShardCtx:
-    if mesh is not None:
-        raise unported("meshes", 11)
-    if opts.seq_shard:
-        raise unported("StepOptions(seq_shard=True) (a mesh)", 11)
-    return ShardCtx(remat=opts.remat, unroll=opts.probe)
+    """The step's ``ShardCtx``: one device, or ``mesh`` (a ``DeviceMesh``
+    whose dims are the batch axes and ``model``), as JAX's.  ``seq_shard``
+    is read on a mesh only, as in JAX."""
+    if mesh is None:
+        return ShardCtx(remat=opts.remat, unroll=opts.probe)
+    dp = batch_shards(mesh)
+    return ShardCtx(
+        mesh=mesh,
+        batch_axes=mesh_batch_axes(mesh),
+        model_axis="model",
+        batch_shardable=(global_batch % dp == 0 and global_batch >= dp),
+        seq_shard=opts.seq_shard,
+        remat=opts.remat,
+        unroll=opts.probe,
+    )
 
 
 # ------------------------------------------------------------ step fns
@@ -79,6 +92,8 @@ def _split(name: str, x: torch.Tensor, nm: int) -> torch.Tensor:
 def build_train_step(
     cfg: ModelConfig, ctx: ShardCtx, opts: StepOptions, microbatch: Optional[int] = None
 ) -> Callable:
+    if ctx.mesh is not None:  # the collectives carry no autograd
+        raise unported("the train step on a mesh (gradients on a mesh)", 11)
     nm_cfg = microbatch if microbatch is not None else max(opts.microbatch, 1)
 
     def loss_and_grads(params, batch):
@@ -273,6 +288,8 @@ def make_cell(arch, shape: str, mesh=None, opts: StepOptions = StepOptions(), *,
     ``batch`` overrides the shape's global batch (the dry run counts a few
     microbatches of a train cell and extrapolates).
     """
+    if mesh is not None:
+        raise unported("make_cell(mesh=...) (the dry run on a mesh)", 11)
     cfg = configs.get_config(arch) if isinstance(arch, str) else arch
     cell = configs.SHAPES[shape]
     B, S = cell.global_batch if batch is None else batch, cell.seq_len

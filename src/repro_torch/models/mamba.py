@@ -13,8 +13,10 @@ Two sequence paths, as in the JAX package:
     and the scan a second time (``model._mamba_prefill_state``).
 
 Decode is the O(1) single-step state update, ``mamba_decode``, with the
-cache updated in place.  The sequence-parallel mixer waits for the
-multi-GPU work (ROADMAP.md queue 1, item 11).
+cache updated in place.  ``mamba_mixer_seq_parallel`` runs the forward and
+prefill of a sequence sharded over a mesh's model axis: local pieces
+(:func:`seq_shard_scan`, :func:`prefix_state`, :func:`seq_shard_output`)
+around two all-gathers.
 """
 from __future__ import annotations
 
@@ -23,18 +25,19 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .._unported import unported
 from ..device import resolve
 from ..kernels import ops
 from . import layers as L
 from .common import ModelConfig
 
 
-def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  left: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Depthwise causal conv. x (B,S,di), w (K,di), b (di,); one tap at a
-    time, rounded as JAX's unrolled taps round."""
+    time, rounded as JAX's unrolled taps round.  ``left`` (B,K−1,di) are
+    the inputs before x's first row (a sequence shard's halo), else zeros."""
     K, S = w.shape[0], x.shape[1]
-    pad = F.pad(x, (0, 0, K - 1, 0))
+    pad = F.pad(x, (0, 0, K - 1, 0)) if left is None else torch.cat([left, x], dim=1)
     out = torch.zeros_like(x)
     for j in range(K):  # K is tiny (4): unrolled taps
         out = out + pad[:, j:j + S] * w[j]
@@ -160,9 +163,78 @@ def _h0_correction(
     return torch.cat(ys, dim=1)
 
 
-def mamba_mixer_seq_parallel(p, u, cfg: ModelConfig, ctx, chunk: int = 128):
-    """The sequence-parallel mixer runs across devices: not ported yet."""
-    raise unported("the sequence-parallel Mamba mixer", 11)
+def prefix_state(pairs: List[torch.Tensor], i: int) -> torch.Tensor:
+    """The state entering sequence shard ``i`` from every shard's (2, B,
+    di, st) pair (exp(A·ΣΔt), h_last) of a scan from h₀ = 0, combined from
+    the oldest shard to the newest in a fixed order:
+    h_in(i) = Σ_{j<i} (Π_{j<k<i} a_prod_k) · h_last_j.  ``i`` = the number
+    of shards gives the state after the last: the whole sequence's."""
+    h = torch.zeros_like(pairs[0][1])
+    for j in range(i):
+        h = h * pairs[j][0] + pairs[j][1]
+    return h
+
+
+def seq_shard_scan(p: Dict[str, torch.Tensor], x: torch.Tensor, left: torch.Tensor,
+                   cfg: ModelConfig, chunk: int, kernel: bool):
+    """One sequence shard's local work before the exchange of states: the
+    causal conv from the halo ``left`` (the K−1 pre-conv inputs before the
+    shard, zeros on the first), the projections, and the scan from h₀ = 0,
+    through ``ops.mamba_scan`` on the staged a and b where ``kernel``, else
+    the chunked plain scan.  -> (conv output, Δt, C, A, y₀, the shard's
+    (2, B, di, st) pair (exp(A·ΣΔt), h_last))."""
+    x = L.silu(causal_conv1d(x, p["conv_w"], p["conv_b"], left))
+    dt, Bm, Cm, A = _project(p, x, cfg)
+    if kernel:
+        a, b = _scan_elements(dt, x, Bm, A)
+        y0, h_last = ops.mamba_scan(a, b, Cm.float())
+        del a, b
+    else:
+        y0, h_last = _ssm_scan_fused(dt, x, Bm, Cm, A, chunk=chunk)
+    a_prod = torch.exp(dt.float().sum(dim=1)[..., None] * A)
+    return x, dt, Cm, A, y0, torch.stack([a_prod, h_last])
+
+
+def seq_shard_output(p: Dict[str, torch.Tensor], x, z, dt, Cm, A, y0, h_in: torch.Tensor,
+                     chunk: int, dtype) -> torch.Tensor:
+    """One shard's mixer output once its incoming state is known: y₀ plus
+    the closed-form C_t·(A_cum_t·h_in) of ``_h0_correction``, then the
+    skip, the gate and the output projection."""
+    return _output(p, y0 + _h0_correction(dt, Cm, A, h_in, chunk=chunk), x, z, dtype)
+
+
+def mamba_mixer_seq_parallel(p, u, cfg: ModelConfig, ctx, chunk: int = 128,
+                             with_state: bool = False):
+    """Sequence-parallel Mamba (JAX ``mamba.py:141``): each model rank scans
+    its S/tp rows of u (B, S/tp, D); the handoff between ranks is exact
+    because a shard's decay product has the closed form
+    Π_t exp(Δt_t·A) = exp(A·ΣΔt):
+
+      1. the halo for the causal conv: JAX ``ppermute``s the last K−1
+         pre-conv rows from rank i to i+1 (rank 0 gets zeros); the port
+         all-gathers them, which also gives prefill the conv state;
+      2. the local scan from h₀ = 0 (:func:`seq_shard_scan`): the scan
+         kernel where ``ctx.kernels`` holds and no gradient is taken, else
+         ``_ssm_scan_fused``;
+      3. an all-gather of every rank's (exp(A·ΣΔt), h_last);
+      4. the prefix combine (:func:`prefix_state`) and
+         C_t·A_cum_t·h_in (:func:`seq_shard_output`).
+
+    With ``with_state`` -> (output, decode state {"h", "conv"}): the prefix
+    combine carried past the last rank, and the last rank's K−1 rows, as
+    :func:`mamba_prefill` gives them for the whole sequence."""
+    K, r = cfg.ssm_d_conv, ctx.model_rank
+    xz = u @ p["in_proj"]
+    x, z = xz.chunk(2, dim=-1)
+    tails = ctx.all_gather(x[:, -(K - 1):])
+    left = tails[r - 1] if r > 0 else torch.zeros_like(tails[0])
+    kernel = ctx.kernels and not torch.is_grad_enabled()
+    x, dt, Cm, A, y0, pair = seq_shard_scan(p, x, left, cfg, chunk, kernel)
+    pairs = ctx.all_gather(pair)
+    out = seq_shard_output(p, x, z, dt, Cm, A, y0, prefix_state(pairs, r), chunk, u.dtype)
+    if not with_state:
+        return out
+    return out, {"h": prefix_state(pairs, len(pairs)), "conv": tails[-1]}
 
 
 def _project(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig):

@@ -33,33 +33,57 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .._unported import unported
 from ..device import resolve
 from ..kernels import ops
 from . import layers as L
 from . import mamba as MB
 from .common import MAMBA, MLA, MOE, NONE, SWA, LayerSpec, ModelConfig
-from .moe import moe_block
+from .moe import EXPERT_KEYS, EPInfo, moe_block
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
-    """How the current step runs.  The port runs on one device: meshes and
-    sequence parallelism wait for ROADMAP.md queue 1, item 11.
+    """How the current step is distributed (None mesh = one device).
 
-    ``unroll`` is JAX's probe mode (the dry run's cost probe): single-block
-    attention and whole-sequence Mamba chunks.  ``plain`` sends prefill's
-    attention and scan through their plain versions (``layers.attention``
-    and the chunked scan, as the training path runs them) instead of the
-    kernels: the dry run's meta tensors, which no kernel takes.  A probe
-    is plain too.
+    On a mesh the port runs SPMD by hand, as JAX's ``shard_map`` bodies do:
+    every rank calls the same entry point with the same global batch and
+    computes only its own blocks.  The hidden state is (B/dp, S/tp, D)
+    where ``seq_shard`` holds for the pass (:func:`_use_seq_parallel`), else
+    (B/dp, S, D), the sequence replicated over the model axis; parameters
+    are replicated except the expert leaves, of which rank r of the model
+    axis holds experts [r·E/tp, (r+1)·E/tp) where :meth:`ep_info` applies
+    (:func:`local_params`); the attention caches are split by
+    ``launch.sharding.cache_pspec``'s rule (batch over the batch axes,
+    sequence over the model axis) and Mamba's states over the batch axes
+    only.  The collectives are ``torch.distributed`` calls on the mesh's
+    groups (``mesh.get_group(name)``): an all-gather into a list and
+    all-reduces (sum, max), which gloo and NCCL both take.  They carry no
+    autograd: gradients on a mesh wait for ROADMAP.md item 11.  JAX's
+    head-sharding constraints are placements and change no value, so they
+    have no counterpart.
+
+    ``mesh`` is a ``DeviceMesh`` (``compat.make_mesh``) with dims named
+    ``batch_axes`` and ``model_axis``.  ``unroll`` is JAX's probe mode (the
+    dry run's cost probe): single-block attention and whole-sequence Mamba
+    chunks.  ``plain`` sends prefill's attention and scan through their
+    plain versions (``layers.attention`` and the chunked scan, as the
+    training path runs them) instead of the kernels: the dry run's meta
+    tensors, which no kernel takes.  A probe is plain too.
     """
 
+    mesh: Optional[Any] = None
+    batch_axes: Tuple[str, ...] = ()
+    model_axis: Optional[str] = "model"
+    batch_shardable: bool = True  # False for global_batch=1 cells
+    seq_shard: bool = False  # sequence-parallel activations
     remat: str = "none"  # none | block
     unroll: bool = False
     plain: bool = False
@@ -76,13 +100,132 @@ class ShardCtx:
     def mamba_chunk(self, S: int) -> int:
         return S if self.unroll else 128
 
+    # ---------------------------------------------------------- the mesh
+    def _size(self, axis: str) -> int:
+        return self.mesh.shape[tuple(self.mesh.mesh_dim_names).index(axis)]
+
+    @property
+    def tp(self) -> int:
+        """Size of the model axis (1 without a mesh)."""
+        if self.mesh is None or self.model_axis not in _dim_names(self.mesh):
+            return 1
+        return self._size(self.model_axis)
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's coordinate on the model axis (0 without a mesh)."""
+        if self.mesh is None or self.model_axis not in _dim_names(self.mesh):
+            return 0
+        return self.mesh.get_local_rank(self.model_axis)
+
+    @property
+    def dp(self) -> int:
+        return math.prod(self._size(a) for a in self.batch_axes) if self.mesh is not None else 1
+
+    def hidden_spec(self) -> Tuple:
+        """JAX's ``hidden_spec``: (batch, sequence, model) as a spec tuple."""
+        b = self.batch_axes if self.batch_shardable else None
+        return (b, self.model_axis if self.seq_shard else None, None)
+
+    def ep_info(self, cfg: ModelConfig) -> Optional[EPInfo]:
+        if self.mesh is None or self.model_axis is None:
+            return None
+        n = self._size(self.model_axis)
+        if cfg.moe_experts % n != 0:
+            return None
+        return EPInfo(axis=self.model_axis, n_shards=n, mesh=self.mesh)
+
+    @property
+    def batch_split(self) -> bool:
+        """Whether the batch is split over the batch axes."""
+        return self.dp > 1 and self.batch_shardable
+
+    def batch_rows(self, B: int) -> slice:
+        """This rank's rows of a global batch of B: row-major over the batch
+        axes where the batch is split."""
+        if not self.batch_split:
+            return slice(None)
+        i = 0
+        for a in self.batch_axes:
+            i = i * self._size(a) + self.mesh.get_local_rank(a)
+        return slice(i * B // self.dp, (i + 1) * B // self.dp)
+
+    def for_pass(self, B: int, S: int) -> "ShardCtx":
+        """The context of one pass over a global (B, S) batch, its layout
+        resolved: ``batch_shardable`` to whether the batch axes split B,
+        ``seq_shard`` to whether the hidden state is sequence-sharded
+        (:func:`_use_seq_parallel`).  Blocks see only their local rows and
+        cannot tell either."""
+        return dataclasses.replace(self, batch_shardable=self.batch_shardable and B % self.dp == 0,
+                                   seq_shard=_use_seq_parallel(self, S))
+
+    # ------------------------------------------------- model-axis collectives
+    def all_gather(self, t: torch.Tensor, axis: Optional[str] = None) -> List[torch.Tensor]:
+        """Every rank's ``t`` along ``axis`` (default the model axis), in rank order."""
+        group = self.mesh.get_group(axis or self.model_axis)
+        out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(out, t.contiguous(), group=group)
+        return out
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum over the model axis, in place."""
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.mesh.get_group(self.model_axis))
+        return t
+
+    def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        """Max over the model axis, in place."""
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.mesh.get_group(self.model_axis))
+        return t
+
+
+def _dim_names(mesh) -> Tuple[str, ...]:
+    return tuple(mesh.mesh_dim_names or ())
+
+
+def _use_seq_parallel(ctx: ShardCtx, S: int) -> bool:
+    return (
+        ctx.seq_shard
+        and ctx.mesh is not None
+        and ctx.model_axis in _dim_names(ctx.mesh)
+        and S % ctx.tp == 0
+        and S >= ctx.tp * 16
+    )
+
+
+def _seq_sharded(ctx: ShardCtx, Sc: int) -> bool:
+    """Is a decode cache of Sc slots sequence-sharded over the model axis?"""
+    return (
+        ctx.mesh is not None
+        and ctx.model_axis in _dim_names(ctx.mesh)
+        and Sc % ctx.tp == 0
+        and Sc >= ctx.tp
+    )
+
+
+def local_params(cfg: ModelConfig, params, ctx: ShardCtx) -> Dict[str, Any]:
+    """This rank's parameters on ``ctx``'s mesh: the expert leaves cut to
+    the rank's experts where ``ctx.ep_info`` applies (views), the rest as
+    given."""
+    ep = ctx.ep_info(cfg)
+    if ep is None or not any(s.mlp == MOE for s in cfg.layout):
+        return params
+    e_loc = cfg.moe_experts // ep.n_shards
+    lo = ctx.model_rank * e_loc
+    layers = [{k: (v[:, lo:lo + e_loc] if k in EXPERT_KEYS else v) for k, v in layer.items()}
+              for layer in params["layers"]]
+    return {**params, "layers": layers}
+
 
 # ---------------------------------------------------------------- embedding
 def embed_tokens(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    _check_compute(cfg, params)
+    return _embed(cfg, params["embed"], batch)
+
+
+def _check_compute(cfg: ModelConfig, params) -> None:
     if params["embed"].dtype != cfg.compute_dtype:
         raise ValueError(f"weights are {params['embed'].dtype}, the config computes in "
                          f"{cfg.compute_dtype}: pass compute_params(cfg, params)")
-    return _embed(cfg, params["embed"], batch)
 
 
 def _embed(cfg: ModelConfig, table: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -186,30 +329,73 @@ def _qkv(cfg, p, h, cos, sin):
     return q, k, v
 
 
+def _chunk(n: int, c: int) -> int:
+    """``attention_chunked``'s block along a length n: min(c, n), or where
+    that does not divide n (JAX asserts there) the largest power-of-two
+    divisor of n below c: 512 keys at gemma2-2b's 4608-token prompt."""
+    b = min(c, n)
+    return b if n % b == 0 else math.gcd(n, c)
+
+
+def seq_attention_local(q, k_blocks, v_blocks, rank: int, *, causal, window, cap, scale=None,
+                        unroll: bool = False):
+    """One rank's context-parallel attention: its query block (B, S/tp, H,
+    hd) against every rank's K and V blocks, in rank order, with the global
+    query offset rank·S/tp.  -> (out, K, V) with K and V whole.  Plain
+    chunked attention, as JAX's body (the flash kernel has no query offset)."""
+    S_loc = q.shape[1]
+    k, v = torch.cat(k_blocks, dim=1), torch.cat(v_blocks, dim=1)
+    S = k.shape[1]
+    # probe mode: single-block chunks, as JAX's
+    cq, ck = (S_loc, S) if unroll else (_chunk(S_loc, 512), _chunk(S, 1024))
+    out = L.attention_chunked(q, k, v, causal=causal, window=window, cap=cap, scale=scale,
+                              q_offset=rank * S_loc, chunk_q=cq, chunk_k=ck)
+    return out, k, v
+
+
+def _attention_seq_parallel(q, k, v, ctx: ShardCtx, *, causal, window, cap, scale=None):
+    """Context-parallel attention (JAX ``model.py:128``): the queries stay
+    sequence-sharded over the model axis, K and V are all-gathered, and
+    each rank computes its causal slice with a global query offset.
+    -> (out, K, V), K and V gathered whole (prefill caches them)."""
+    return seq_attention_local(q, ctx.all_gather(k), ctx.all_gather(v), ctx.model_rank,
+                               causal=causal, window=window, cap=cap, scale=scale,
+                               unroll=ctx.unroll)
+
+
 def _attn_seq(cfg, spec, p, h, cos, sin, ctx: ShardCtx) -> torch.Tensor:
     B, S, _ = h.shape
     q, k, v = _qkv(cfg, p, h, cos, sin)
     window = cfg.window if spec.mixer == SWA else 0
-    out = L.attention(q, k, v, causal=cfg.causal, window=window, cap=cfg.attn_softcap,
-                      direct_threshold=ctx.direct_threshold())
+    if ctx.seq_shard:
+        out, _, _ = _attention_seq_parallel(q, k, v, ctx, causal=cfg.causal, window=window,
+                                            cap=cfg.attn_softcap)
+    else:
+        out = L.attention(q, k, v, causal=cfg.causal, window=window, cap=cfg.attn_softcap,
+                          direct_threshold=ctx.direct_threshold())
     return out.reshape(B, S, -1) @ p["wo"]
 
 
-def _prefill_attention(ctx: ShardCtx, q, k, v, **kw) -> torch.Tensor:
-    """Prefill's attention: the flash kernel (its plain version for CPU
-    tensors), or with ``ctx.plain`` or ``ctx.unroll`` ``layers.attention``."""
+def _prefill_attention(ctx: ShardCtx, q, k, v, **kw):
+    """Prefill's attention -> (out, K, V): sequence-parallel where the
+    hidden state is sequence-sharded (K and V gathered whole); else the
+    flash kernel (its plain version for CPU tensors), or with ``ctx.plain``
+    or ``ctx.unroll`` ``layers.attention``."""
+    if ctx.seq_shard:
+        return _attention_seq_parallel(q, k, v, ctx, **kw)
     if ctx.kernels:
-        return ops.flash_attention(q, k, v, **kw)
-    return L.attention(q, k, v, direct_threshold=ctx.direct_threshold(), **kw)
+        return ops.flash_attention(q, k, v, **kw), k, v
+    return L.attention(q, k, v, direct_threshold=ctx.direct_threshold(), **kw), k, v
 
 
 def _attn_seq_with_cache(cfg, spec, p, h, cos, sin, ctx: ShardCtx):
-    """Prefill: returns (attn_out, (k_full, v_full))."""
+    """Prefill: returns (attn_out, (k_full, v_full)), K and V over the
+    whole sequence."""
     B, S, _ = h.shape
     q, k, v = _qkv(cfg, p, h, cos, sin)
     window = cfg.window if spec.mixer == SWA else 0
-    out = _prefill_attention(ctx, q, k, v, causal=cfg.causal, window=window,
-                             cap=cfg.attn_softcap)
+    out, k, v = _prefill_attention(ctx, q, k, v, causal=cfg.causal, window=window,
+                                   cap=cfg.attn_softcap)
     return out.reshape(B, S, -1) @ p["wo"], (k, v)
 
 
@@ -254,31 +440,64 @@ def _mla_scale(cfg) -> float:
 def _mla_seq(cfg, p, h, cos, sin, ctx: ShardCtx) -> torch.Tensor:
     B, S, _ = h.shape
     q, k, v, _, _ = _mla_qkv(cfg, p, h, cos, sin)
-    out = L.attention(q, k, v, causal=cfg.causal, window=0, cap=cfg.attn_softcap,
-                      scale=_mla_scale(cfg), direct_threshold=ctx.direct_threshold())
+    kw = dict(causal=cfg.causal, window=0, cap=cfg.attn_softcap, scale=_mla_scale(cfg))
+    if ctx.seq_shard:
+        out, _, _ = _attention_seq_parallel(q, k, v, ctx, **kw)
+    else:
+        out = L.attention(q, k, v, direct_threshold=ctx.direct_threshold(), **kw)
     return out.reshape(B, S, -1) @ p["wo"]
 
 
 def _mla_seq_with_cache(cfg, p, h, cos, sin, ctx: ShardCtx):
-    """Prefill: returns (attn_out, (ckv, k_rope)), the latent cache; the
-    flash kernel pads v's head dim with q's."""
+    """Prefill: returns (attn_out, (ckv, k_rope)), the latent cache over the
+    whole sequence (gathered where the hidden state is sequence-sharded);
+    the flash kernel pads v's head dim with q's."""
     B, S, _ = h.shape
     q, k, v, ckv, k_rope = _mla_qkv(cfg, p, h, cos, sin)
-    out = _prefill_attention(ctx, q, k, v, causal=cfg.causal, window=0,
-                             cap=cfg.attn_softcap, scale=_mla_scale(cfg))
-    return out.reshape(B, S, -1) @ p["wo"], (ckv, k_rope[:, :, 0])
+    out, _, _ = _prefill_attention(ctx, q, k, v, causal=cfg.causal, window=0,
+                                   cap=cfg.attn_softcap, scale=_mla_scale(cfg))
+    k_rope = k_rope[:, :, 0]
+    if ctx.seq_shard:
+        ckv, k_rope = (torch.cat(ctx.all_gather(t), dim=1) for t in (ckv, k_rope))
+    return out.reshape(B, S, -1) @ p["wo"], (ckv, k_rope)
 
 
-def _mlp_apply(cfg, spec, p, h):
-    if spec.mlp == MOE:
+def _gather_global(ctx: ShardCtx, h: torch.Tensor, batch: bool) -> torch.Tensor:
+    """The whole of a block-split (B, S, D) tensor on every rank: the
+    sequence gathered over the model axis where it is sharded, and with
+    ``batch`` the rows over the batch axes, innermost first."""
+    if ctx.seq_shard:
+        h = torch.cat(ctx.all_gather(h), dim=1)
+    if batch and ctx.batch_split:
+        for a in reversed(ctx.batch_axes):
+            h = torch.cat(ctx.all_gather(h, a), dim=0)
+    return h
+
+
+def _mlp_apply(cfg, spec, p, h, ctx: ShardCtx = ShardCtx()):
+    if spec.mlp != MOE:
+        return L.mlp(p, h, cfg.activation)
+    if ctx.mesh is None:
         return moe_block(p, h, cfg)
-    return L.mlp(p, h, cfg.activation)
+    # On a mesh JAX routes the tokens of its shard_map block (sequence
+    # whole, batch split) with ``ep``, else the global batch (XLA keeps
+    # moe_block's global semantics): the capacity comes from that N, so the
+    # port gathers the same tokens, routes them alike, and keeps its block.
+    ep = ctx.ep_info(cfg)
+    full = _gather_global(ctx, h, batch=ep is None)
+    out = moe_block(p, full, cfg, ep)
+    if ep is None:
+        out = out[ctx.batch_rows(out.shape[0])]
+    if ctx.seq_shard:
+        S_loc = h.shape[1]
+        out = out[:, ctx.model_rank * S_loc:(ctx.model_rank + 1) * S_loc]
+    return out
 
 
-def _mlp_residual(cfg, spec, p, x):
+def _mlp_residual(cfg, spec, p, x, ctx: ShardCtx = ShardCtx()):
     if spec.mlp == NONE:
         return x
-    h = _mlp_apply(cfg, spec, p, L.rms_norm(x, p["ln2"], cfg.norm_eps))
+    h = _mlp_apply(cfg, spec, p, L.rms_norm(x, p["ln2"], cfg.norm_eps), ctx)
     if cfg.sandwich_norm:
         h = L.rms_norm(h, p["post_ln2"], cfg.norm_eps)
     return x + h
@@ -290,16 +509,22 @@ def _mixer_residual(cfg, x, h, p):
     return x + h
 
 
+def _mamba_seq(p, h, cfg, ctx: ShardCtx) -> torch.Tensor:
+    if ctx.seq_shard:
+        return MB.mamba_mixer_seq_parallel(p, h, cfg, ctx, chunk=ctx.mamba_chunk(h.shape[1]))
+    return MB.mamba_sequence(p, h, cfg, chunk=ctx.mamba_chunk(h.shape[1]))
+
+
 def apply_block(cfg, spec: LayerSpec, p, x, cos, sin, ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec.mixer == MAMBA:
-        h = MB.mamba_sequence(p, h, cfg, chunk=ctx.mamba_chunk(h.shape[1]))
+        h = _mamba_seq(p, h, cfg, ctx)
     elif spec.mixer == MLA:
         h = _mla_seq(cfg, p, h, cos, sin, ctx)
     else:
         h = _attn_seq(cfg, spec, p, h, cos, sin, ctx)
     x = _mixer_residual(cfg, x, h, p)
-    return _mlp_residual(cfg, spec, p, x)
+    return _mlp_residual(cfg, spec, p, x, ctx)
 
 
 # ----------------------------------------------------------------- forward
@@ -332,11 +557,32 @@ def _period(cfg: ModelConfig, layers: List[Dict[str, torch.Tensor]], x, cos, sin
     return x
 
 
-def _layers(cfg: ModelConfig, params, x: torch.Tensor, batch, ctx: ShardCtx) -> torch.Tensor:
+def _inputs(cfg: ModelConfig, table: torch.Tensor, batch, ctx: ShardCtx):
+    """-> (x, cos, sin, ctx): the embedded input, its RoPE cos/sin and the
+    pass's context (:meth:`ShardCtx.for_pass`).  On a mesh, the rank's
+    block: its batch rows and, sequence-sharded, its S/tp positions from
+    the global offset rank·S/tp (``pos3`` sliced alike)."""
+    lead = batch["embeds"] if cfg.modality == "audio_stub" else batch["tokens"]
+    B, S = lead.shape[:2]
+    ctx = ctx.for_pass(B, S)
+    off, S_loc = 0, S
+    if ctx.mesh is not None:
+        rows = ctx.batch_rows(B)
+        batch = {k: (v[:, rows] if k == "pos3" else v[rows]) for k, v in batch.items()}
+        if ctx.seq_shard:
+            S_loc = S // ctx.tp
+            off = ctx.model_rank * S_loc
+            if "pos3" in batch:
+                batch["pos3"] = batch["pos3"][:, :, off:off + S_loc]
+    x = _embed(cfg, table, batch)[:, off:off + S_loc]
+    positions = _positions(cfg, batch, x.shape[0], S_loc, off, device=x.device)
+    cos, sin = _rope_cos_sin(cfg, positions, cfg.qk_dim)
+    return x, cos, sin, ctx
+
+
+def _layers(cfg: ModelConfig, params, x: torch.Tensor, cos, sin, ctx: ShardCtx) -> torch.Tensor:
     if ctx.remat not in ("none", "block"):
         raise ValueError(f"remat must be 'none' or 'block', got {ctx.remat!r}")
-    B, S, _ = x.shape
-    cos, sin = _rope_cos_sin(cfg, _positions(cfg, batch, B, S, device=x.device), cfg.qk_dim)
     for layers in _unstacked(params):
         if ctx.remat == "block":  # each period's activations recomputed in backward
             x = checkpoint(_period, cfg, layers, x, cos, sin, ctx, use_reentrant=False)
@@ -346,10 +592,14 @@ def _layers(cfg: ModelConfig, params, x: torch.Tensor, batch, ctx: ShardCtx) -> 
 
 
 def hidden_states(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
-    return _layers(cfg, params, embed_tokens(cfg, params, batch), batch, ctx)
+    """The final hidden states; on a mesh the rank's block of them."""
+    _check_compute(cfg, params)
+    x, cos, sin, ctx = _inputs(cfg, params["embed"], batch, ctx)
+    return _layers(cfg, params, x, cos, sin, ctx)
 
 
 def forward(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
+    """Logits over the vocab; on a mesh the rank's block of them."""
     logits = unembed(cfg, params, hidden_states(cfg, params, batch, ctx))
     return logits[..., : cfg.vocab]  # crop padding (API surface only)
 
@@ -374,9 +624,13 @@ def loss_and_metrics(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx()
     unembed+CE over the sequence, each chunk under a checkpoint, keeps live
     logits at (B, chunk, V); the backward pass recomputes each chunk's
     logits from the final hidden states.  -> (loss, {"loss", "accuracy",
-    "tokens"}), float32 scalars on the weights' device.
+    "tokens"}), float32 scalars on the weights' device.  On one device:
+    the collectives on a mesh carry no autograd.
     """
-    x = _layers(cfg, params, _embed(cfg, params["embed"], batch), batch, ctx)
+    if ctx.mesh is not None:
+        raise unported("the loss and its gradients on a mesh", 11)
+    x, cos, sin, ctx = _inputs(cfg, params["embed"], batch, ctx)
+    x = _layers(cfg, params, x, cos, sin, ctx)
     B, S, _ = x.shape
     labels = batch["labels"]
     cs = min(ce_chunk, S)
@@ -394,10 +648,24 @@ def loss_and_metrics(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx()
 
 
 # ------------------------------------------------------------------- cache
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> Dict[str, Any]:
+def _cache_len(cfg: ModelConfig, spec: LayerSpec, max_seq: int) -> int:
+    """A layer's cache slots: the window for SWA, else max_seq."""
+    return min(max_seq, cfg.window) if spec.mixer == SWA else max_seq
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
+               ctx: ShardCtx = ShardCtx()) -> Dict[str, Any]:
     """Zeroed decode cache, stacked over periods per layout position;
-    ``device=None`` is the port's default device."""
+    ``device=None`` is the port's default device.  On a mesh only the
+    rank's blocks of a global batch of ``batch`` (:func:`_cache_block`'s
+    rule), and ``max_seq``, which decode reads."""
     device = resolve(device)
+    if ctx.mesh is not None:
+        batch = len(range(batch)[ctx.for_pass(batch, 0).batch_rows(batch)])
+
+    def slots(n: int) -> int:  # the rank's share of n sequence slots
+        return n // ctx.tp if _seq_sharded(ctx, n) else n
+
     NP, dt = cfg.n_periods, cfg.compute_dtype
     per_pos: List[Dict[str, torch.Tensor]] = []
     for spec in cfg.layout:
@@ -407,44 +675,124 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> Dict[
             continue
         if spec.mixer == MLA:
             per_pos.append({
-                "ckv": torch.zeros((NP, batch, max_seq, cfg.kv_lora_rank), dtype=dt,
+                "ckv": torch.zeros((NP, batch, slots(max_seq), cfg.kv_lora_rank), dtype=dt,
                                    device=device),
-                "krope": torch.zeros((NP, batch, max_seq, cfg.qk_rope_dim), dtype=dt,
+                "krope": torch.zeros((NP, batch, slots(max_seq), cfg.qk_rope_dim), dtype=dt,
                                      device=device),
             })
             continue
-        Sc = min(max_seq, cfg.window) if spec.mixer == SWA else max_seq
+        Sc = slots(_cache_len(cfg, spec, max_seq))
         shape = (NP, batch, Sc, cfg.n_kv_heads, cfg.head_dim)
         per_pos.append({
             "k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),
             "kpos": torch.full((NP, Sc), -1, dtype=torch.int32, device=device),
         })
-    return {"pos": 0, "layers": per_pos}
+    cache = {"pos": 0, "layers": per_pos}
+    return cache if ctx.mesh is None else {**cache, "max_seq": max_seq}
+
+
+def _cache_block(ctx: ShardCtx, name: str, t: torch.Tensor) -> torch.Tensor:
+    """A cache leaf stacked over periods, cut to the rank's block by
+    ``cache_pspec``'s rule: the sequence of ``k``, ``v``, ``kpos``, ``ckv``
+    and ``krope`` over the model axis where it is sharded
+    (:func:`_seq_sharded`); Mamba's ``h`` and ``conv`` stay whole (their
+    d_inner split needs tensor parallelism).  A cut block is a copy, so
+    the whole leaf can be freed."""
+    dim = 1 if name == "kpos" else 2  # kpos (NP, Sc); the rest (NP, B, Sc, ...)
+    n = t.shape[dim]
+    if name in ("h", "conv") or ctx.tp == 1 or not _seq_sharded(ctx, n):
+        return t
+    return t.narrow(dim, ctx.model_rank * n // ctx.tp, n // ctx.tp).clone()
 
 
 def _attn_decode(cfg, spec, p, h, cache, pos: int, cos, sin):
     """One-token attention against the (possibly ring-buffered) cache; the
     new key and value are written into ``cache`` in place."""
-    B = h.shape[0]
-    H, hd = cfg.n_heads, cfg.head_dim
     q, k, v = _qkv(cfg, p, h, cos, sin)
-    Sc = cache["k"].shape[1]  # this layer's slice: (B, Sc, KV, hd)
-    slot = pos % Sc  # ring for SWA; plain index otherwise (pos < Sc)
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
-    # fill_, not ``= pos``: item assignment copies a CPU scalar tensor to the
-    # card, a pageable copy that makes the host wait once per layer
-    cache["kpos"][slot].fill_(pos)
-    window = cfg.window if spec.mixer == SWA else 0
-    acc, m, l = L.attention_partial(
-        q, cache["k"], cache["v"], causal=True, window=window, cap=cfg.attn_softcap,
-        scale=1.0 / math.sqrt(hd),
-        qpos=torch.full((1, 1), pos, device=h.device), kpos=cache["kpos"][None, :],
-    )
+    acc, m, l = attn_decode_partial(cfg, spec, q, k, v, cache, pos, 0, 1)
     out = acc / l.clamp(min=1e-30)[..., None]  # (B,KV,G,1,hd)
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, H * hd).to(h.dtype)
-    return out @ p["wo"]
+    return _heads_out(out, h.dtype) @ p["wo"]
+
+
+def _heads_out(out: torch.Tensor, dtype) -> torch.Tensor:
+    """(B, KV, G, 1, hd) attention output -> (B, 1, H·hd) in ``dtype``."""
+    return out.permute(0, 3, 1, 2, 4).reshape(out.shape[0], 1, -1).to(dtype)
+
+
+# ------------------------------------------------------- sharded decodes
+def merge_partials(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor, pmax, psum) -> torch.Tensor:
+    """Partial softmaxes over cache blocks merged into attention: the global
+    max ``m_g = pmax(m)``, ``r = exp(m − m_g)``, ``l_g = psum(l·r)``,
+    ``acc_g = psum(acc·r)``, -> acc_g / l_g.  With the model axis's
+    collectives (one max, two sums: the Chimbuko PS merge's pattern), or
+    with reductions over a stacked rank axis (four ranks in one process)."""
+    m_g = pmax(m.clone())
+    r = torch.exp(m - m_g)
+    l_g = psum(l * r)
+    acc_g = psum(acc * r[..., None])
+    return acc_g / l_g.clamp(min=1e-30)[..., None]
+
+
+def attn_decode_partial(cfg, spec, q, k_new, v_new, cache, pos: int, rank: int, tp: int):
+    """One rank's share of a decode step's attention over its block of a
+    sequence-sharded cache (``cache``'s k, v (B, Sc/tp, KV, hd) and kpos;
+    the whole cache at rank 0 of 1): the new key and value are written
+    where the rank owns slot ``pos % Sc`` (the ring's slot for SWA; ``pos``
+    itself otherwise, pos < Sc), in place.  -> (acc, m, l) of
+    ``layers.attention_partial`` over the block."""
+    Sc_loc = cache["k"].shape[1]
+    rel = pos % (Sc_loc * tp) - rank * Sc_loc
+    if 0 <= rel < Sc_loc:
+        cache["k"][:, rel] = k_new[:, 0]
+        cache["v"][:, rel] = v_new[:, 0]
+        # fill_, not ``= pos``: item assignment copies a CPU scalar tensor to
+        # the card, a pageable copy that makes the host wait once per layer
+        cache["kpos"][rel].fill_(pos)
+    return L.attention_partial(
+        q, cache["k"], cache["v"], causal=True, window=cfg.window if spec.mixer == SWA else 0,
+        cap=cfg.attn_softcap, scale=1.0 / math.sqrt(cfg.head_dim),
+        qpos=torch.full((1, 1), pos, device=q.device), kpos=cache["kpos"][None, :])
+
+
+def _attn_decode_sharded(cfg, spec, p, q, k_new, v_new, cache, pos: int, ctx: ShardCtx):
+    """Flash-decode over a sequence-sharded KV cache (JAX ``model.py:451``):
+    every model rank attends to its cache block and the partial softmaxes
+    merge with one max and two sums over the model axis.  -> (B, 1, H·hd)
+    in q's dtype; the cache block is updated in place."""
+    acc, m, l = attn_decode_partial(cfg, spec, q, k_new, v_new, cache, pos, ctx.model_rank,
+                                    ctx.tp)
+    return _heads_out(merge_partials(acc, m, l, ctx.pmax, ctx.psum), q.dtype)
+
+
+def mla_decode_partial(cfg, q_eff, q_rope, ckv_new, krope_new, cache, pos: int, rank: int):
+    """One rank's share of the absorbed-MLA decode over its block of the
+    sequence-sharded latent cache (slots = positions: no ring); the new
+    latent and rope key are written where the rank owns ``pos``, in place.
+    -> (acc (B,H,1,kvr), m, l), float32."""
+    Sc_loc = cache["ckv"].shape[1]
+    rel = pos - rank * Sc_loc
+    if 0 <= rel < Sc_loc:
+        cache["ckv"][:, rel] = ckv_new[:, 0]
+        cache["krope"][:, rel] = krope_new[:, 0, 0]
+    cc, kc = cache["ckv"].float(), cache["krope"].float()
+    s = torch.einsum("bqhk,bsk->bhqs", q_eff.float(), cc)
+    s = s + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), kc)
+    s = L.softcap(s * _mla_scale(cfg), cfg.attn_softcap)
+    valid = rank * Sc_loc + torch.arange(Sc_loc, device=cc.device) <= pos
+    s = torch.where(valid, s, L.NEG_INF)
+    m = s.amax(-1)
+    pv = torch.where((m <= L.NEG_INF / 2)[..., None], 0.0, torch.exp(s - m[..., None]))
+    return torch.einsum("bhqs,bsk->bhqk", pv, cc), m, pv.sum(-1)
+
+
+def _mla_decode_sharded(cfg, p, q_eff, q_rope, ckv_new, krope_new, cache, pos: int,
+                        ctx: ShardCtx) -> torch.Tensor:
+    """Absorbed-MLA flash-decode over the sequence-sharded latent cache
+    (JAX ``model.py:515``).  -> the latent (B, 1, H, kvr), float32."""
+    acc, m, l = mla_decode_partial(cfg, q_eff, q_rope, ckv_new, krope_new, cache, pos,
+                                   ctx.model_rank)
+    return merge_partials(acc, m, l, ctx.pmax, ctx.psum).transpose(1, 2)
 
 
 def _mla_decode(cfg, p, h, cache, pos: int, cos, sin):
@@ -454,35 +802,53 @@ def _mla_decode(cfg, p, h, cache, pos: int, cos, sin):
     ``cache`` at ``pos`` in place.  The casts follow JAX's: q_eff in the
     compute dtype, scores, softmax and the latent sum in float32, then W_uv
     in float32 (JAX promotes bf16 x float32 to float32)."""
-    B = h.shape[0]
-    H, kvr, nope, vh = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.v_head_dim
+    q_eff, q_rope, ckv_new, krope_new = mla_decode_query(cfg, p, h, cos, sin)
+    acc, m, l = mla_decode_partial(cfg, q_eff, q_rope, ckv_new, krope_new, cache, pos, 0)
+    lat = (acc / l.clamp(min=1e-30)[..., None]).transpose(1, 2)  # (B,1,H,kvr)
+    return mla_latent_out(cfg, p, lat, h.dtype)
+
+
+def mla_decode_query(cfg, p, h, cos, sin):
+    """The decode token's absorbed query q_eff (B,1,H,kvr) = q_nope·W_uk,
+    its rotated q_rope, and the new latent and rope key for the cache."""
+    H, kvr, nope = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_nope_dim
     q_nope, q_rope, ckv_new, krope_new = _mla_project(cfg, p, h, cos, sin)
-    cache["ckv"][:, pos] = ckv_new[:, 0]
-    cache["krope"][:, pos] = krope_new[:, 0, 0]
-    ckv, krope = cache["ckv"], cache["krope"]
     q_eff = torch.einsum("bqhn,khn->bqhk", q_nope, p["wuk"].reshape(kvr, H, nope))
-    scores = torch.einsum("bqhk,bsk->bhqs", q_eff.float(), ckv.float())
-    scores = scores + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), krope.float())
-    scores = L.softcap(scores * _mla_scale(cfg), cfg.attn_softcap)
-    valid = torch.arange(ckv.shape[1], device=h.device) <= pos
-    probs = torch.softmax(torch.where(valid, scores, L.NEG_INF), dim=-1)
-    lat = torch.einsum("bhqs,bsk->bqhk", probs, ckv.float())  # (B,1,H,kvr)
+    return q_eff, q_rope, ckv_new, krope_new
+
+
+def mla_latent_out(cfg, p, lat: torch.Tensor, dtype) -> torch.Tensor:
+    """The attended latent (B, 1, H, kvr), float32, through W_uv (float32)
+    and W_o: the decode's output (B, 1, D)."""
+    B, H, kvr, vh = lat.shape[0], cfg.n_heads, cfg.kv_lora_rank, cfg.v_head_dim
     out = torch.einsum("bqhk,khv->bqhv", lat, p["wuv"].reshape(kvr, H, vh).float())
-    return out.reshape(B, 1, H * vh).to(h.dtype) @ p["wo"]
+    return out.reshape(B, 1, H * vh).to(dtype) @ p["wo"]
 
 
-def decode_block(cfg, spec, p, x, cache, pos: int, cos, sin):
+def decode_block(cfg, spec, p, x, cache, pos: int, cos, sin, ctx: ShardCtx = ShardCtx(),
+                 max_seq: Optional[int] = None):
     """One layer of a decode step; ``cache`` (this layer's slice) is
-    updated in place."""
+    updated in place.  On a mesh, attention runs the sharded decodes
+    wherever the layer's cache is sequence-sharded (:func:`_seq_sharded`
+    of its global slots, from ``max_seq``)."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    sharded = ctx.mesh is not None and spec.mixer != MAMBA and \
+        _seq_sharded(ctx, _cache_len(cfg, spec, max_seq))
     if spec.mixer == MAMBA:
         h, _ = MB.mamba_decode(p, h, cache, cfg)
+    elif spec.mixer == MLA and sharded:
+        q_eff, q_rope, ckv_new, krope_new = mla_decode_query(cfg, p, h, cos, sin)
+        lat = _mla_decode_sharded(cfg, p, q_eff, q_rope, ckv_new, krope_new, cache, pos, ctx)
+        h = mla_latent_out(cfg, p, lat, h.dtype)
     elif spec.mixer == MLA:
         h = _mla_decode(cfg, p, h, cache, pos, cos, sin)
+    elif sharded:
+        q, k, v = _qkv(cfg, p, h, cos, sin)
+        h = _attn_decode_sharded(cfg, spec, p, q, k, v, cache, pos, ctx) @ p["wo"]
     else:
         h = _attn_decode(cfg, spec, p, h, cache, pos, cos, sin)
     x = _mixer_residual(cfg, x, h, p)
-    return _mlp_residual(cfg, spec, p, x)
+    return _mlp_residual(cfg, spec, p, x, ctx)
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
@@ -490,9 +856,18 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
     """One decode step: tokens (B, 1) -> (logits (B, 1, V), cache).
 
     The cache's tensors are updated in place and returned with ``pos``
-    advanced; the cache passed in is not to be stepped again.
+    advanced; the cache passed in is not to be stepped again.  On a mesh
+    ``tokens`` is the global batch, the cache the rank's blocks
+    (:func:`init_cache`, :func:`prefill`), and the logits the rank's rows.
     """
     pos = int(cache["pos"])
+    max_seq = cache.get("max_seq")
+    if ctx.mesh is not None:
+        if max_seq is None:
+            raise ValueError("a decode step on a mesh takes the rank's cache blocks "
+                             "(init_cache or prefill with the mesh's ShardCtx)")
+        ctx = ctx.for_pass(tokens.shape[0], 1)
+        tokens = tokens[ctx.batch_rows(tokens.shape[0])]
     x = embed_tokens(cfg, params, {"tokens": tokens})
     B = x.shape[0]
     # M-RoPE: t = h = w = pos, as JAX decodes, also after a prefill whose
@@ -503,48 +878,42 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
     for period in range(cfg.n_periods):
         for i, spec in enumerate(cfg.layout):
             c = {name: t[period] for name, t in cache["layers"][i].items()}
-            x = decode_block(cfg, spec, _layer(params, i, period), x, c, pos, cos, sin)
+            x = decode_block(cfg, spec, _layer(params, i, period), x, c, pos, cos, sin, ctx,
+                             max_seq)
     logits = unembed(cfg, params, x)
-    return logits, {"pos": pos + 1, "layers": cache["layers"]}
+    return logits, {**cache, "pos": pos + 1}
 
 
-def _expand_prefill_cache(cfg: ModelConfig, layer_caches, S: int, max_seq: int):
-    """Grow prefill caches to max_seq decode slots, ring-aligned for SWA;
-    Mamba states pass through, MLA latents are zero-padded."""
-    out = []
-    for spec, c in zip(cfg.layout, layer_caches):
-        if spec.mixer == MAMBA:
-            out.append(c)
-            continue
-        if spec.mixer == MLA:  # slots == positions: zero-pad to max_seq
-            pad = max_seq - c["ckv"].shape[2]
-            if pad > 0:
-                c = {name: F.pad(t, (0, 0, 0, pad)) for name, t in c.items()}
-            out.append(c)
-            continue
-        w = c["k"].shape[2]  # stored length after prefill
-        Sc = min(max_seq, cfg.window) if spec.mixer == SWA else max_seq
-        if Sc == w:
-            if S > w:  # ring-align: position p must live in slot p % w
-                sh = S % w
-                c = {
-                    "k": torch.roll(c["k"], sh, dims=2),
-                    "v": torch.roll(c["v"], sh, dims=2),
-                    "kpos": torch.roll(c["kpos"], sh, dims=1),
-                }
-        else:
-            assert Sc > w, (Sc, w)
-            NP, B, _, KV, hd = c["k"].shape
-            off = S - w  # slots == positions (no wrap: S <= Sc here)
-            k = c["k"].new_zeros((NP, B, Sc, KV, hd))
-            v = c["v"].new_zeros((NP, B, Sc, KV, hd))
-            kpos = torch.full((NP, Sc), -1, dtype=torch.int32, device=c["kpos"].device)
-            k[:, :, off:off + w] = c["k"]
-            v[:, :, off:off + w] = c["v"]
-            kpos[:, off:off + w] = c["kpos"]
-            c = {"k": k, "v": v, "kpos": kpos}
-        out.append(c)
-    return out
+def _expand_layer_cache(cfg: ModelConfig, spec: LayerSpec, c, S: int, max_seq: int):
+    """Grow one layout position's prefill cache (stacked over periods) to
+    max_seq decode slots, ring-aligned for SWA; a Mamba state passes
+    through, MLA latents are zero-padded."""
+    if spec.mixer == MAMBA:
+        return c
+    if spec.mixer == MLA:  # slots == positions: zero-pad to max_seq
+        pad = max_seq - c["ckv"].shape[2]
+        return {name: F.pad(t, (0, 0, 0, pad)) for name, t in c.items()} if pad > 0 else c
+    w = c["k"].shape[2]  # stored length after prefill
+    Sc = _cache_len(cfg, spec, max_seq)
+    if Sc == w:
+        if S > w:  # ring-align: position p must live in slot p % w
+            sh = S % w
+            c = {
+                "k": torch.roll(c["k"], sh, dims=2),
+                "v": torch.roll(c["v"], sh, dims=2),
+                "kpos": torch.roll(c["kpos"], sh, dims=1),
+            }
+        return c
+    assert Sc > w, (Sc, w)
+    NP, B, _, KV, hd = c["k"].shape
+    off = S - w  # slots == positions (no wrap: S <= Sc here)
+    k = c["k"].new_zeros((NP, B, Sc, KV, hd))
+    v = c["v"].new_zeros((NP, B, Sc, KV, hd))
+    kpos = torch.full((NP, Sc), -1, dtype=torch.int32, device=c["kpos"].device)
+    k[:, :, off:off + w] = c["k"]
+    v[:, :, off:off + w] = c["v"]
+    kpos[:, off:off + w] = c["kpos"]
+    return {"k": k, "v": v, "kpos": kpos}
 
 
 def prefill(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx(),
@@ -555,16 +924,28 @@ def prefill(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx(),
     gives its output and its decode state, where JAX computes the state in
     a second pass (``_mamba_prefill_state``).  With ``ctx.plain`` or
     ``ctx.unroll`` (the dry run) attention and the scan take their plain
-    versions instead of the kernels."""
-    x = embed_tokens(cfg, params, batch)
-    B, S, _ = x.shape
-    cos, sin = _rope_cos_sin(cfg, _positions(cfg, batch, B, S, device=x.device), cfg.qk_dim)
+    versions instead of the kernels.
+
+    On a mesh every rank passes the global batch and gets its rows of the
+    last position's logits and its cache blocks (:func:`_cache_block`),
+    each layer's cut as soon as it is built, so no rank holds the whole
+    cache.  Sequence-sharded, attention is the context-parallel body, its
+    cache built from the gathered K and V (MLA: the gathered latents), and
+    a Mamba layer the sequence-parallel mixer, whose prefix combine
+    carried one rank further gives the state.
+    """
+    _check_compute(cfg, params)
+    x, cos, sin, ctx = _inputs(cfg, params["embed"], batch, ctx)
+    S = x.shape[1] * (ctx.tp if ctx.seq_shard else 1)
     per_pos: List[Dict[str, List[torch.Tensor]]] = [{} for _ in cfg.layout]
     for period in range(cfg.n_periods):
         for i, spec in enumerate(cfg.layout):
             p = _layer(params, i, period)
             h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-            if spec.mixer == MAMBA:
+            if spec.mixer == MAMBA and ctx.seq_shard:
+                h, cch = MB.mamba_mixer_seq_parallel(
+                    p, h, cfg, ctx, chunk=ctx.mamba_chunk(S // ctx.tp), with_state=True)
+            elif spec.mixer == MAMBA:
                 h, cch = MB.mamba_prefill(p, h, cfg, chunk=None if ctx.kernels
                                           else ctx.mamba_chunk(S))
             elif spec.mixer == MLA:
@@ -580,11 +961,19 @@ def prefill(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx(),
                     kpos = torch.arange(S, dtype=torch.int32, device=x.device)
                 cch = {"k": k, "v": v, "kpos": kpos}
             x = _mixer_residual(cfg, x, h, p)
-            x = _mlp_residual(cfg, spec, p, x)
+            x = _mlp_residual(cfg, spec, p, x, ctx)
+            cch = {name: t[None] for name, t in cch.items()}  # a period axis of 1
+            if max_seq is not None and max_seq != S:
+                cch = _expand_layer_cache(cfg, spec, cch, S, max_seq)
             for name, t in cch.items():
-                per_pos[i].setdefault(name, []).append(t)
-    layer_caches = [{name: torch.stack(ts) for name, ts in c.items()} for c in per_pos]
-    logits = unembed(cfg, params, x[:, -1:])
-    if max_seq is not None and max_seq != S:
-        layer_caches = _expand_prefill_cache(cfg, layer_caches, S, max_seq)
-    return logits, {"pos": S, "layers": layer_caches}
+                per_pos[i].setdefault(name, []).append(_cache_block(ctx, name, t)[0])
+    # stacked a leaf at a time, each leaf's layers freed as it goes
+    layer_caches = [{name: torch.stack(c.pop(name)) for name in list(c)} for c in per_pos]
+    last = x[:, -1:]
+    if ctx.seq_shard:  # the last position lives on the last model rank
+        last = ctx.all_gather(last)[-1]
+    logits = unembed(cfg, params, last)
+    cache = {"pos": S, "layers": layer_caches}
+    if ctx.mesh is None:
+        return logits, cache
+    return logits, {**cache, "max_seq": S if max_seq is None else max_seq}

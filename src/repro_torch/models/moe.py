@@ -21,8 +21,14 @@ Where the port pins down what torch leaves open, it follows JAX exactly:
     the same input are bitwise equal on the card.
 
 Nothing here waits on the device: the capacity comes from shapes, and no
-index is read back to the host.  Expert parallelism (``ep=EPInfo``) waits
-for the multi-GPU slice.
+index is read back to the host.
+
+Expert parallelism (``ep=EPInfo``), JAX's ``shard_map`` body: the tokens
+are replicated over the expert axis and rank r holds experts
+[r·E/n, (r+1)·E/n) (``moe_gate``, ``moe_up``, ``moe_down`` cut to them).
+Every rank routes all tokens identically, computes its own experts'
+contributions (:func:`moe_local`), and one all-reduce over the axis sums
+them.  In float32 that equals ``ep=None`` up to the order of that sum.
 """
 from __future__ import annotations
 
@@ -31,20 +37,24 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
-from .._unported import unported
 from . import layers as L
 from .common import ModelConfig
 
 KEYS = ("router", "moe_gate", "moe_up", "moe_down")  # the layer weights moe_block reads
+EXPERT_KEYS = KEYS[1:]  # split over the expert axis
 
 
 @dataclasses.dataclass(frozen=True)
 class EPInfo:
-    """Expert-parallel context: which experts this shard owns."""
+    """Expert-parallel context: which experts this shard owns.  ``mesh`` is
+    the ``DeviceMesh`` whose dim ``axis`` the experts are split over (JAX
+    finds it from ``shard_map``)."""
 
     axis: str  # mesh axis name experts are sharded over
     n_shards: int
+    mesh: Optional[object] = None
 
 
 def _positions_in_run(sorted_ids: torch.Tensor) -> torch.Tensor:
@@ -75,15 +85,36 @@ def capacity(cfg: ModelConfig, n_tokens: int) -> int:
 
 def moe_block(
     p: Dict[str, torch.Tensor],
-    x: torch.Tensor,  # (B, S, D)
+    x: torch.Tensor,  # (B, S, D), replicated over the expert axis with ``ep``
     cfg: ModelConfig,
     ep: Optional[EPInfo] = None,
 ) -> torch.Tensor:
-    """Top-k routed expert MLP with capacity-based sort dispatch."""
-    if ep is not None:
-        raise unported("moe_block(ep=EPInfo) (expert parallelism)", 11)
+    """Top-k routed expert MLP with capacity-based sort dispatch; with
+    ``ep`` this rank's experts (``p``'s expert leaves hold E/n of them) and
+    one all-reduce of the contributions over ``ep.axis``."""
+    if ep is None:
+        return moe_local(p, x, cfg, 0)
+    if ep.mesh is None:
+        raise ValueError("EPInfo needs the mesh whose axis splits the experts")
+    E = cfg.moe_experts
+    if E % ep.n_shards or p["moe_gate"].shape[0] != E // ep.n_shards:
+        raise ValueError(f"expert parallelism over {ep.n_shards} ranks takes this rank's "
+                         f"{E // ep.n_shards} of {E} experts, got {p['moe_gate'].shape[0]}")
+    out = moe_local(p, x, cfg, ep.mesh.get_local_rank(ep.axis) * (E // ep.n_shards))
+    dist.all_reduce(out, group=ep.mesh.get_group(ep.axis))
+    return out
+
+
+def moe_local(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+              offset: int) -> torch.Tensor:
+    """The contributions of experts [offset, offset + e) to every token,
+    where ``p``'s expert leaves hold those e experts (all E: ``moe_block``
+    without expert parallelism).  The routing and the capacity are those
+    of all E experts over x's N tokens; a pair routed elsewhere, or past
+    its expert's capacity, adds 0."""
     B, S, D = x.shape
     E, k = cfg.moe_experts, cfg.moe_topk
+    e_loc = p["moe_gate"].shape[0]
     N = B * S
     xt = x.reshape(N, D)
 
@@ -100,11 +131,14 @@ def moe_block(
     s_tok = flat_tok[order]
     s_w = weights.reshape(-1)[order]
     pos = _positions_in_run(s_ids)
+    local_e = s_ids - offset
     owned = pos < C
-    sink = E * C  # one row past the real slots takes every dropped pair
-    slot = torch.where(owned, s_ids * C + pos, sink)
+    if e_loc != E:
+        owned = owned & (local_e >= 0) & (local_e < e_loc)
+    sink = e_loc * C  # one row past the real slots takes every dropped pair
+    slot = torch.where(owned, local_e * C + pos, sink)
     buf = x.new_zeros((sink + 1, D)).index_put((slot,), xt[s_tok])
-    buf = buf[:sink].reshape(E, C, D)
+    buf = buf[:sink].reshape(e_loc, C, D)
 
     # --- expert FFN (batched GEMMs over experts) ----------------------------
     act = L.gelu_tanh if cfg.activation == "geglu" else L.silu

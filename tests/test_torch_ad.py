@@ -197,7 +197,9 @@ def test_port_sources_import_no_jax_and_nothing_of_repro_at_any_depth():
             "repro_torch.lint.baseline", "repro_torch.lint.cli",
             "repro_torch.lint.__main__", "repro_torch.compat", "repro_torch.launch.roofline",
             "repro_torch.launch.dryrun", "repro_torch.launch.mesh",
-            "repro_torch.launch.sharding", "repro_torch.optim.compression"} <= walked
+            "repro_torch.launch.sharding", "repro_torch.optim.compression",
+            "repro_torch.models.mamba", "repro_torch.launch.steps",
+            "repro_torch.convert"} <= walked
     # the check sees nested imports: a function-level one is caught
     probe = REPO / "src" / "repro_torch" / "trace" / "monitor.py"
     assert "repro_torch.fault.health" in set(_imported_modules(probe))

@@ -375,10 +375,33 @@ def test_decode_from_an_empty_cache_matches_jax_and_forward():
                                    np.asarray(jcache["layers"][0][name]), **F32)
 
 
-def test_sequence_parallel_mixer_waits_for_multi_gpu():
-    _, tcfg = _cfgs("float32")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TMB.mamba_mixer_seq_parallel({}, torch.zeros((1, 4, tcfg.d_model)), tcfg, None)
+def test_sequence_parallel_mixer_waits_for_multi_gpu(tmp_path):
+    """On a one-rank gloo mesh the sequence-parallel mixer is the mixer:
+    with autograd on, its chunked scan equals ``mamba_sequence`` bitwise in
+    float32; with none, its scan-kernel route (the plain version on the
+    CPU) equals ``mamba_prefill``'s output and decode state bitwise (the
+    halo of rank 0 is zeros and the incoming state 0).  Four ranks:
+    tests/test_torch_seq_parallel.py."""
+    import torch.distributed as dist
+
+    from repro_torch import compat
+
+    _, tcfg, _, p = _block("float32")
+    _, u = _acts((2, 32, tcfg.d_model), "float32")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg", rank=0, world_size=1)
+    try:
+        mesh = compat.make_mesh((1,), ("model",), device="cpu")
+        ctx = TM.ShardCtx(mesh=mesh, seq_shard=True)
+        assert torch.equal(TMB.mamba_mixer_seq_parallel(p, u, tcfg, ctx),
+                           TMB.mamba_sequence(p, u, tcfg))
+        with torch.no_grad():
+            out, state = TMB.mamba_mixer_seq_parallel(p, u, tcfg, ctx, with_state=True)
+            want, want_state = TMB.mamba_prefill(p, u, tcfg)
+        assert torch.equal(out, want)
+        for name in ("h", "conv"):
+            assert torch.equal(state[name], want_state[name])
+    finally:
+        dist.destroy_process_group()
 
 
 # --------------------------------------------------------------- wrapper

@@ -291,7 +291,7 @@ def test_swa_ring_buffer_consistency():
     ("gemma-2b", 12, 20),  # FULL: zero-padded to max_seq
 ])
 def test_prefill_cache_matches_jax(arch, S_pre, max_seq):
-    """_expand_prefill_cache: same slots, positions and values as JAX."""
+    """Prefill's cache expansion: same slots, positions and values as JAX."""
     jcfg, tcfg = _cfgs(arch, f32=True)
     jp, tp = _carried(jcfg, tcfg)
     toks = _tokens(jcfg.vocab, 6, (B, S_pre))

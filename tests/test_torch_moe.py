@@ -184,15 +184,36 @@ def test_routing_and_capacity_match_jax(arch, case):
         assert np.bincount(ids_t.numpy().ravel(), minlength=tcfg.moe_experts).max() > C
 
 
-def test_moe_block_is_bitwise_repeatable_and_refuses_expert_parallelism():
+def test_moe_block_is_bitwise_repeatable_and_refuses_expert_parallelism(tmp_path):
+    """Two calls are bitwise equal; on a one-rank gloo mesh
+    ``ep=EPInfo("model", 1)`` (every expert local, one all-reduce) equals
+    ``ep=None`` bitwise, in bf16 and in float32.  It refuses an EPInfo
+    without its mesh, and expert leaves that are not the rank's share.
+    Four ranks: tests/test_torch_seq_parallel.py."""
+    import torch.distributed as dist
+
+    from repro_torch import compat
+
     p, x = _block_inputs("granite-moe-1b-a400m", "tight")
     _, tcfg = _cfgs("granite-moe-1b-a400m", False, cf=1.0)
     tp = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in p.items()}
     tx = torch.from_numpy(x).to(torch.bfloat16)
     a, b = TMOE.moe_block(tp, tx, tcfg), TMOE.moe_block(tp, tx, tcfg)
     assert torch.equal(a, b) and a.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TMOE.moe_block(tp, tx, tcfg, ep=TMOE.EPInfo("model", 2))
+    _, f32 = _cfgs("granite-moe-1b-a400m", True, cf=1.0)
+    fp = {k: torch.from_numpy(v) for k, v in p.items()}
+    fx = torch.from_numpy(x)
+    with pytest.raises(ValueError, match="mesh"):
+        TMOE.moe_block(tp, tx, tcfg, ep=TMOE.EPInfo("model", 1))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg", rank=0, world_size=1)
+    try:
+        ep = TMOE.EPInfo("model", 1, compat.make_mesh((1,), ("model",), device="cpu"))
+        assert torch.equal(TMOE.moe_block(tp, tx, tcfg, ep=ep), a)
+        assert torch.equal(TMOE.moe_block(fp, fx, f32, ep=ep), TMOE.moe_block(fp, fx, f32))
+        with pytest.raises(ValueError, match="experts"):
+            TMOE.moe_block(tp, tx, tcfg, ep=TMOE.EPInfo("model", 2, ep.mesh))
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("arch", ARCHS)

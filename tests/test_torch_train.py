@@ -335,17 +335,32 @@ def test_donate_false_leaves_the_input_state_untouched():
     assert not torch.equal(new["params"]["embed"], state["params"]["embed"])
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(seq_shard=True), "item 11"), (dict(seq_shard=True, probe=True), "item 11"),
-])
-def test_mesh_and_probe_options_raise_naming_their_item(kw, item):
-    """A mesh and ``seq_shard`` wait for item 11; ``probe`` runs since the
-    dry run was ported (item 12), so it raises only beside them."""
+@pytest.mark.parametrize("kw", [dict(seq_shard=True), dict(seq_shard=True, probe=True)])
+def test_mesh_and_probe_options_raise_naming_their_item(kw, tmp_path):
+    """``seq_shard`` is read on a mesh only, as JAX's make_shard_ctx reads it
+    (repro/launch/steps.py:57-73); on a one-rank gloo mesh the context is
+    JAX's: its batch axes, the model axis, a shardable batch, and
+    ``seq_shard`` and ``probe`` as asked."""
+    import torch.distributed as dist
+
+    from repro_torch import compat
+
     cfg = tconfigs.smoke("gemma-2b")
-    with pytest.raises(NotImplementedError, match=item):
-        TS.make_shard_ctx(cfg, None, 4, TS.StepOptions(**kw))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TS.make_shard_ctx(cfg, object(), 4, TS.StepOptions())
+    opts = TS.StepOptions(**kw)
+    assert TS.make_shard_ctx(cfg, None, 4, opts) == TM.ShardCtx(remat=opts.remat,
+                                                                unroll=opts.probe)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg", rank=0, world_size=1)
+    try:
+        mesh = compat.make_mesh((1, 1), ("data", "model"), device="cpu")
+        ctx = TS.make_shard_ctx(cfg, mesh, 4, opts)
+        assert ctx == TM.ShardCtx(mesh=mesh, batch_axes=("data",), model_axis="model",
+                                  batch_shardable=True, seq_shard=True, remat=opts.remat,
+                                  unroll=opts.probe)
+        assert ctx.tp == ctx.dp == 1 and ctx.model_rank == 0
+        assert ctx.hidden_spec() == (("data",), "model", None)
+        assert ctx.for_pass(4, 16).seq_shard and not ctx.for_pass(4, 8).seq_shard
+    finally:
+        dist.destroy_process_group()
 
 
 def test_probe_option_gives_the_probe_context():
@@ -361,7 +376,8 @@ def test_probe_option_gives_the_probe_context():
 
 @pytest.mark.parametrize("call", ["dryrun_mesh_single", "dryrun_cli_multi", "param_shardings",
                                   "batch_shardings", "cache_shardings", "production_mesh",
-                                  "dp_step_2d_mesh"])
+                                  "dp_step_2d_mesh", "train_step_on_a_mesh", "loss_on_a_mesh",
+                                  "make_cell_on_a_mesh"])
 def test_placements_on_a_mesh_raise_item_11(call):
     from types import SimpleNamespace
 
@@ -378,6 +394,10 @@ def test_placements_on_a_mesh_raise_item_11(call):
         "cache_shardings": lambda: TSH.cache_shardings(cfg, {}, None),
         "production_mesh": lambda: TMESH.make_production_mesh(multi_pod=True),
         "dp_step_2d_mesh": lambda: TS.make_dp_train_step(cfg, SimpleNamespace(ndim=2)),
+        "train_step_on_a_mesh": lambda: TS.build_train_step(
+            cfg, TM.ShardCtx(mesh=object()), TS.StepOptions()),
+        "loss_on_a_mesh": lambda: TM.loss_and_metrics(cfg, {}, {}, TM.ShardCtx(mesh=object())),
+        "make_cell_on_a_mesh": lambda: TS.make_cell("gemma-2b", "train_4k", mesh=object()),
     }
     with pytest.raises(NotImplementedError, match="item 11"):
         calls[call]()
