@@ -130,8 +130,25 @@ non-zero):
            at positions 4608-4639, minicpm3-4b's sequence-parallel prefill
            attention and sharded decode, qwen3-moe-30b-a3b's MoE layer (128
            experts as 4 x 32); device times beside the unsharded calls;
+  M        the train step on a mesh, over the same NCCL group: (M-a) path E's
+           run (gemma-2b at full width, its seed, batches and options) on a
+           one-rank (1, 1) mesh, its state placed by
+           launch.sharding.param_shardings with fsdp: the step-0 loss against
+           path E's at rtol 1e-5, every loss within 0.35 of path E's
+           (relative), step times, tokens/s, peak memory and mfu beside path
+           E's; one float32 step with seq_shard of gemma-2b,
+           granite-moe-1b-a400m, falcon-mamba-7b and minicpm3-4b, each cut to
+           2 layers, against the same step without a mesh (path K-c's
+           criterion); no port kernel launched (training runs the plain
+           versions, as JAX does);
 
-then the script's wall time, the path K and path L JSON lines, the card's name and
+    python3 chip_smoke.py --m-ranks 4   # path M-b on four cards, one process
+                                        # each: gemma-2b on a (2, 2) mesh with
+                                        # fsdp and seq_shard, 6 steps against
+                                        # one device's, saved after step 3,
+                                        # restored onto (1, 4), steps 3-5 again
+
+then the script's wall time, the path K, L and M JSON lines, the card's name and
 power limit, one JSON line describing every ported kernel, and last
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 2 and prints
 no result.
@@ -300,6 +317,21 @@ SEQ_PAR = dict(arch="gemma2-2b", batch=4, prompt_len=4608, max_new=32, hidden_se
 SEQ_BODIES = dict(ranks=4, mamba=("falcon-mamba-7b", 4, 1024), decode=("gemma2-2b", 4, 4608, 32),
                   mla=("minicpm3-4b", 4, 1024, 8), moe=("qwen3-moe-30b-a3b", 4, 1024))
 SEQ_TOL = 2e-2  # the card's bf16 smoke tolerance, beyond the plain-attention baseline (ROADMAP §3)
+# Path M: the train step on a mesh, its state placed by param_shardings.
+# M-a: path E's run (its seed, batches and options, fsdp) on a one-rank (1, 1)
+# mesh over the NCCL group, seq_shard off: its step-0 loss against path E's
+# (build_train_step without a mesh on the same state and batch) at the card's
+# exact-resume rtol, every loss within tests/test_training.py:112's relative
+# 0.35 of path E's; then one float32 step with seq_shard on for each of
+# MESH_PARITY at full width cut to TRAIN_PARITY's layers, against the same
+# step without a mesh by TRAIN_PARITY (K-c).  M-b (--m-ranks N, N cards):
+# gemma-2b on a (2, N/2) mesh with fsdp and seq_shard, its losses within
+# tests/test_elastic.py:66's 5e-2 of the one-device run; a save after step
+# 3, a restore onto (1, N) and steps 3-5 within the same bound of the
+# uninterrupted run.
+MESH_PARITY = ("gemma-2b", "granite-moe-1b-a400m", "falcon-mamba-7b", "minicpm3-4b")
+MESH_LOSS_RTOL = 0.35  # tests/test_training.py:112: two runs' losses, relative
+MESH_RANKS = dict(save_after=3, loss_atol=5e-2)  # tests/test_elastic.py:66
 SMOKE_TOL = {"float32": dict(rtol=1e-4, atol=1e-3),  # tests/test_torch_models.py:43
              "bfloat16": dict(rtol=2e-2, atol=2e-2)}  # tests/test_torch_models.py:229
 
@@ -2167,24 +2199,13 @@ def train_card_vs_cpu(dev, tag: str, arch: str = TRAIN["arch"]) -> dict:
     frame embeddings."""
     import torch
 
-    from repro_torch import configs
     from repro_torch import tree as T
     from repro_torch.launch import steps as TS
 
-    cfg = dataclasses.replace(configs.get_config(arch),
-                              n_layers=TRAIN_PARITY["n_layers"], compute_dtype=torch.float32)
-    Bp, Sp = TRAIN_PARITY["batch"], TRAIN_PARITY["seq"]
+    cfg, batch = parity_inputs(arch)
     opts = train_opts()
-    step_fn = TS.build_train_step(cfg, TS.make_shard_ctx(cfg, None, Bp, opts), opts)
-    rng = np.random.default_rng(SEED)
-    if cfg.modality == "audio_stub":
-        batch = {"embeds": torch.from_numpy(
-                     rng.normal(0, 1, (Bp, Sp, cfg.d_model)).astype(np.float32)),
-                 "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (Bp, Sp)).astype(np.int32))}
-    else:
-        tokens = rng.integers(0, cfg.vocab, (Bp, Sp + 1))
-        batch = {"tokens": torch.from_numpy(tokens[:, :-1].astype(np.int32)),
-                 "labels": torch.from_numpy(tokens[:, 1:].astype(np.int32))}
+    step_fn = TS.build_train_step(cfg, TS.make_shard_ctx(cfg, None, TRAIN_PARITY["batch"], opts),
+                                  opts)
     cpu_state = TS.make_train_state(cfg, SEED, device="cpu")
     before = {name: t.clone() for name, t in T.paths(cpu_state["params"])}
     dev_state = T.map(lambda t: t.to(dev, copy=True), cpu_state)
@@ -2196,15 +2217,63 @@ def train_card_vs_cpu(dev, tag: str, arch: str = TRAIN["arch"]) -> dict:
     cpu_state, cpu_m = step_fn(cpu_state, batch)
     cpu_s = time.perf_counter() - t0
     tol = TRAIN_PARITY
+    n_off, n_all, worst, lr = held_step(f"{tag}: card vs CPU", dev_m, cpu_m,
+                                        T.leaves(dev_state["params"]), cpu_state["params"], before)
+    log(f"{tag}: card vs CPU, one float32 step at full width cut to {cfg.n_layers} layers "
+        f"({cfg.n_params():,} parameters), batch {TRAIN_PARITY['batch']} x "
+        f"{TRAIN_PARITY['seq']}: loss {float(dev_m['loss']):.6f} "
+        f"vs {float(cpu_m['loss']):.6f}, grad norm {float(dev_m['grad_norm']):.6f} vs "
+        f"{float(cpu_m['grad_norm']):.6f}; params after the step: {n_off} of {n_all} beyond "
+        f"rtol {tol['params_rtol']} / atol {tol['params_atol']} (at most a share of "
+        f"{tol['params_off_share']}), max abs diff {worst:.3g} (lr {lr:.3g}); card "
+        f"{card_s:.2f} s, CPU {cpu_s:.2f} s")
+    return {"loss": float(dev_m["loss"]), "cpu_loss": float(cpu_m["loss"]),
+            "params_beyond_tol": n_off, "params": n_all, "max_abs_diff": worst}
+
+
+def parity_inputs(arch: str):
+    """(``arch`` at its published width cut to TRAIN_PARITY's layers in
+    float32, one seeded batch of TRAIN_PARITY's shape on the CPU); an
+    audio-stub model steps on seeded frame embeddings."""
+    import torch
+
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.get_config(arch),
+                              n_layers=TRAIN_PARITY["n_layers"], compute_dtype=torch.float32)
+    Bp, Sp = TRAIN_PARITY["batch"], TRAIN_PARITY["seq"]
+    rng = np.random.default_rng(SEED)
+    if cfg.modality == "audio_stub":
+        return cfg, {"embeds": torch.from_numpy(
+                         rng.normal(0, 1, (Bp, Sp, cfg.d_model)).astype(np.float32)),
+                     "labels": torch.from_numpy(
+                         rng.integers(0, cfg.vocab, (Bp, Sp)).astype(np.int32))}
+    tokens = rng.integers(0, cfg.vocab, (Bp, Sp + 1))
+    return cfg, {"tokens": torch.from_numpy(tokens[:, :-1].astype(np.int32)),
+                 "labels": torch.from_numpy(tokens[:, 1:].astype(np.int32))}
+
+
+def held_step(what: str, got_m: dict, want_m: dict, got_params: list, want_params, before: dict):
+    """One train step against another by TRAIN_PARITY (K-c): loss and grad
+    norm at their rtols; each parameter leaf after the step (``got_params``
+    in leaf order, any device, against ``want_params``' tree) finite, moved
+    from ``before`` and within 2 lr (1 + its largest magnitude), and at most
+    a share of the elements beyond rtol / atol.  -> (elements beyond, all,
+    largest abs diff, lr); raises on a miss."""
+    import torch
+
+    from repro_torch import tree as T
+
+    tol = TRAIN_PARITY
     for name in ("loss", "grad_norm"):
-        got, want = float(dev_m[name]), float(cpu_m[name])
+        got, want = float(got_m[name]), float(want_m[name])
         if not abs(got - want) <= tol[f"{name}_rtol"] * abs(want):
-            raise AssertionError(f"{tag}: card vs CPU {name} {got} vs {want} beyond rtol "
+            raise AssertionError(f"{what}: {name} {got} vs {want} beyond rtol "
                                  f"{tol[f'{name}_rtol']}")
-    lr = float(cpu_m["lr"])
+    lr = float(want_m["lr"])
     worst, n_off, n_all = 0.0, 0, 0
-    for (name, want), got in zip(T.paths(cpu_state["params"]), T.leaves(dev_state["params"])):
-        got = got.cpu()
+    for (name, want), got in zip(T.paths(want_params), got_params):
+        got, want = got.to(want.device), want
         err = (got - want).abs()
         off = err > tol["params_atol"] + tol["params_rtol"] * want.abs()
         n_off += int(off.sum())
@@ -2213,20 +2282,12 @@ def train_card_vs_cpu(dev, tag: str, arch: str = TRAIN["arch"]) -> dict:
         moved = (want - before[name]).abs().max()
         if float(err.max()) > 2 * lr * (1 + float(before[name].abs().max())) or \
                 not bool(torch.isfinite(got).all()) or float(moved) == 0.0:
-            raise AssertionError(f"{tag}: card vs CPU {name}: max abs diff "
-                                 f"{float(err.max())} (lr {lr}), moved {float(moved)}")
+            raise AssertionError(f"{what} {name}: max abs diff {float(err.max())} (lr {lr}), "
+                                 f"moved {float(moved)}")
     if n_off > tol["params_off_share"] * n_all:
-        raise AssertionError(f"{tag}: card vs CPU params: {n_off} of {n_all} beyond rtol "
+        raise AssertionError(f"{what} params: {n_off} of {n_all} beyond rtol "
                              f"{tol['params_rtol']} / atol {tol['params_atol']}")
-    log(f"{tag}: card vs CPU, one float32 step at full width cut to {cfg.n_layers} layers "
-        f"({cfg.n_params():,} parameters), batch {Bp} x {Sp}: loss {float(dev_m['loss']):.6f} "
-        f"vs {float(cpu_m['loss']):.6f}, grad norm {float(dev_m['grad_norm']):.6f} vs "
-        f"{float(cpu_m['grad_norm']):.6f}; params after the step: {n_off} of {n_all} beyond "
-        f"rtol {tol['params_rtol']} / atol {tol['params_atol']} (at most a share of "
-        f"{tol['params_off_share']}), max abs diff {worst:.3g} (lr {lr:.3g}); card "
-        f"{card_s:.2f} s, CPU {cpu_s:.2f} s")
-    return {"loss": float(dev_m["loss"]), "cpu_loss": float(cpu_m["loss"]),
-            "params_beyond_tol": n_off, "params": n_all, "max_abs_diff": worst}
+    return n_off, n_all, worst, lr
 
 
 def train_resume_on_card(dev, tag: str) -> dict:
@@ -3336,6 +3397,254 @@ def phase_seq_parallel(dev) -> dict:
     return {"counts": counts, "model": model, "bodies": bodies}
 
 
+# ------------------------------------------------------------- path M
+def timed_steps(step_fn, state, batches):
+    """One step per batch -> (state, losses, grad norms, CUDA-event ms,
+    host ms around each synchronised step)."""
+    import torch
+
+    losses, gnorms, event_ms, host_ms = [], [], [], []
+    for batch in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        state, m = step_fn(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        event_ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    return state, losses, gnorms, event_ms, host_ms
+
+
+def mesh_path_inputs(dev):
+    """Path E's configuration, options and batches (its stream, seed 0) on
+    ``dev``."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataShard, SyntheticStream, to_device
+
+    cfg = configs.get_config(TRAIN["arch"])
+    B, S = TRAIN["global_batch"], TRAIN["seq"]
+    stream = SyntheticStream(cfg, DataShard(0, 1, B), S, seed=0)
+    return cfg, train_opts(), [to_device(stream.batch_at(s), dev) for s in range(TRAIN["steps"])]
+
+
+def placed_state(cfg, mesh, opts, dev):
+    """make_train_state(cfg, 0) on ``dev``, placed by train_state_shardings."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import steps as TS
+
+    state = TS.make_train_state(cfg, 0, device=dev)
+    return SH.place(state, TS.train_state_shardings(cfg, state, mesh, opts))
+
+
+def phase_mesh_train(dev, path_e: dict) -> dict:
+    """Path M-a (see MESH_PARITY's comment): path E's run on a one-rank
+    (1, 1) mesh, its state placed with fsdp; then the float32 meshed step
+    with seq_shard of each MESH_PARITY config against the step without a
+    mesh.  Counts set to 0 before and read after: no port kernel."""
+    import torch
+
+    from repro_torch import compat
+    from repro_torch import tree as T
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import steps as TS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tag = f"train_mesh[{TRAIN['arch']}]"
+    cfg, opts, batches = mesh_path_inputs(dev)
+    B, S, steps = TRAIN["global_batch"], TRAIN["seq"], TRAIN["steps"]
+    mesh = compat.make_mesh((1, 1), ("data", "model"), device=dev)
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = placed_state(cfg, mesh, opts, dev)
+    step_fn = TS.build_train_step(cfg, TS.make_shard_ctx(cfg, mesh, B, opts), opts)
+    state, losses, gnorms, event_ms, host_ms = timed_steps(step_fn, state, batches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    embed = state["params"]["embed"]
+    placements = [str(p) for p in embed.placements]
+    del state, step_fn
+    e_losses = path_e["losses"]
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"{tag}: non-finite loss or grad norm: {losses} {gnorms}")
+    if abs(losses[0] - e_losses[0]) > TRAIN_SOCKET["loss_rtol"] * abs(e_losses[0]):
+        raise AssertionError(f"{tag}: step-0 loss {losses[0]!r} against path E's "
+                             f"{e_losses[0]!r} (build_train_step without a mesh), rtol "
+                             f"{TRAIN_SOCKET['loss_rtol']}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, e_losses)]
+    if max(rel) >= MESH_LOSS_RTOL:
+        raise AssertionError(f"{tag}: losses {losses} against path E's {e_losses}")
+    later_event, later_host = float(np.mean(event_ms[1:])), float(np.mean(host_ms[1:]))
+    tok_per_s = B * S / (later_host / 1e3)
+    log(f"{tag}: path E's run on a (1, 1) mesh (fsdp, embed placed {placements}), {steps} "
+        f"steps of {B} x {S}: losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; step-0 loss {losses[0]!r} vs path E's {e_losses[0]!r}; largest relative loss "
+        f"difference from path E {max(rel):.3g}; grad norms "
+        + ", ".join(f"{x:.4f}" for x in gnorms)
+        + f"; steps 1-{steps - 1}: CUDA events {later_event:.1f} ms, host {later_host:.1f} ms "
+        f"per step (path E: {path_e['step_ms']:.1f}, {path_e['step_host_ms']:.1f} ms), "
+        f"{tok_per_s:.0f} tokens/s (path E {path_e['tok_per_s']:.0f}); peak memory "
+        f"{peak / 1e9:.2f} GB (path E {path_e['peak_bytes'] / 1e9:.2f} GB)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    parity = {}  # TF32 is off for the whole run (phase_env's parity_mode)
+    for arch in MESH_PARITY:
+        cfg, batch = parity_inputs(arch)
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        mopts = dataclasses.replace(opts, seq_shard=True)
+        ref_state = TS.make_train_state(cfg, SEED, device=dev)
+        before = {name: t.clone() for name, t in T.paths(ref_state["params"])}
+        state = SH.place(T.map(torch.clone, ref_state),
+                         TS.train_state_shardings(cfg, ref_state, mesh, mopts))
+        ref_fn = TS.build_train_step(cfg, TS.make_shard_ctx(cfg, None, TRAIN_PARITY["batch"],
+                                                             opts), opts)
+        ctx = TS.make_shard_ctx(cfg, mesh, TRAIN_PARITY["batch"], mopts)
+        if not ctx.for_pass(TRAIN_PARITY["batch"], TRAIN_PARITY["seq"]).seq_shard:
+            raise AssertionError(f"{tag}: {arch}'s parity step is not sequence-sharded")
+        ref_state, ref_m = ref_fn(ref_state, batch)
+        state, m = TS.build_train_step(cfg, ctx, mopts)(state, batch)
+        n_off, n_all, worst, lr = held_step(
+            f"{tag}: {arch} meshed vs unmeshed", m, ref_m,
+            [t.to_local() for t in T.leaves(state["params"])], ref_state["params"], before)
+        parity[arch] = {"loss": float(m["loss"]), "ref_loss": float(ref_m["loss"]),
+                        "grad_norm": float(m["grad_norm"]),
+                        "ref_grad_norm": float(ref_m["grad_norm"]),
+                        "params_beyond_tol": n_off, "params": n_all, "max_abs_diff": worst}
+        log(f"{tag}: {arch} float32 (TF32 off), full width cut to {cfg.n_layers} layers "
+            f"({cfg.n_params():,} parameters), {TRAIN_PARITY['batch']} x "
+            f"{TRAIN_PARITY['seq']}, seq_shard on the (1, 1) mesh vs no mesh: loss "
+            f"{float(m['loss']):.6f} vs {float(ref_m['loss']):.6f}, grad norm "
+            f"{float(m['grad_norm']):.6f} vs {float(ref_m['grad_norm']):.6f}; params after "
+            f"the step {n_off} of {n_all} beyond rtol {TRAIN_PARITY['params_rtol']} / atol "
+            f"{TRAIN_PARITY['params_atol']}, max abs diff {worst:.3g} (lr {lr:.3g})")
+        del state, ref_state, before
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{tag}: port kernels launched on path M: {counts}")
+    return {"counts": counts, "losses": losses, "grad_norms": gnorms, "event_ms": event_ms,
+            "host_ms": host_ms, "step_ms": later_event, "step_host_ms": later_host,
+            "tok_per_s": tok_per_s, "peak_bytes": peak, "path_e_losses": e_losses,
+            "max_rel_loss_diff": max(rel), "embed_placements": placements, "parity": parity}
+
+
+def mesh_ranks_run(dev, n: int, ckdir: str) -> dict:
+    """Path M-b on one of ``n`` ranks (the NCCL group initialised): path E's
+    run on this rank's card without a mesh, then on a (2, n/2) mesh with
+    fsdp and seq_shard, saved after step MESH_RANKS["save_after"], restored
+    onto (1, n) from the files and stepped to the end again."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import compat
+    from repro_torch.checkpoint import ckpt as CK
+    from repro_torch.launch import steps as TS
+
+    tag = f"train_mesh_ranks[{TRAIN['arch']}, rank {dist.get_rank()} of {n}]"
+    cfg, opts, batches = mesh_path_inputs(dev)
+    B, k = TRAIN["global_batch"], MESH_RANKS["save_after"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = TS.make_train_state(cfg, 0, device=dev)
+    one_fn = TS.build_train_step(cfg, TS.make_shard_ctx(cfg, None, B, opts), opts)
+    state, one_losses, _, one_ms, _ = timed_steps(one_fn, state, batches)
+    one_peak = torch.cuda.max_memory_allocated(dev)
+    del state, one_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mopts = dataclasses.replace(opts, seq_shard=True)
+    mesh = compat.make_mesh((2, n // 2), ("data", "model"), device=dev)
+    state = placed_state(cfg, mesh, mopts, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state_bytes = torch.cuda.memory_allocated(dev)
+    step_fn = TS.build_train_step(cfg, TS.make_shard_ctx(cfg, mesh, B, mopts), mopts)
+    state, losses, gnorms, ms, host = timed_steps(step_fn, state, batches[:k])
+    os.makedirs(ckdir, exist_ok=True)
+    free = shutil.disk_usage(ckdir).free
+    t0 = time.perf_counter()
+    CK.save(ckdir, k, state)
+    save_s = time.perf_counter() - t0
+    state, more, more_g, more_ms, more_host = timed_steps(step_fn, state, batches[k:])
+    losses, gnorms, ms, host = losses + more, gnorms + more_g, ms + more_ms, host + more_host
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh_b = compat.make_mesh((1, n), ("data", "model"), device=dev)
+    target = TS.meta_train_state(cfg)
+    t0 = time.perf_counter()
+    step_at, state = CK.load(ckdir, target=target,
+                             shardings=TS.train_state_shardings(cfg, target, mesh_b, mopts))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    step_b = TS.build_train_step(cfg, TS.make_shard_ctx(cfg, mesh_b, B, mopts), mopts)
+    state, resumed, _, resumed_ms, _ = timed_steps(step_b, state, batches[k:])
+    del state, step_b
+    off_one = max(abs(a - b) for a, b in zip(losses, one_losses))
+    off_resumed = max(abs(a - b) for a, b in zip(resumed, losses[k:]))
+    if step_at != k or not all(math.isfinite(x) for x in losses + resumed) or \
+            off_one >= MESH_RANKS["loss_atol"] or off_resumed >= MESH_RANKS["loss_atol"]:
+        raise AssertionError(f"{tag}: restored step {step_at}; losses {losses} on the mesh, "
+                             f"{one_losses} on one device, {resumed} resumed on (1, {n})")
+    log(f"{tag}: one device {', '.join(f'{x:.4f}' for x in one_losses)} "
+        f"({float(np.mean(one_ms[1:])):.1f} ms/step, peak {one_peak / 1e9:.2f} GB); "
+        f"(2, {n // 2}) mesh with fsdp and seq_shard {', '.join(f'{x:.4f}' for x in losses)} "
+        f"(largest difference {off_one:.4g}; {float(np.mean(ms[1:])):.1f} ms/step CUDA events, "
+        f"host {float(np.mean(host[1:])):.1f}; placed state {state_bytes / 1e9:.2f} GB, peak "
+        f"{peak / 1e9:.2f} GB); saved after step {k} in {save_s:.1f} s ({free / 1e9:.0f} GB "
+        f"free there), restored onto (1, {n}) in {load_s:.1f} s: steps {k}-{len(batches) - 1} "
+        f"{', '.join(f'{x:.4f}' for x in resumed)} (largest difference {off_resumed:.4g}; "
+        f"{float(np.mean(resumed_ms)):.1f} ms/step)")
+    return {"rank": dist.get_rank(), "one_losses": one_losses, "one_peak": one_peak,
+            "one_step_ms": float(np.mean(one_ms[1:])), "losses": losses, "grad_norms": gnorms,
+            "step_ms": float(np.mean(ms[1:])), "step_host_ms": float(np.mean(host[1:])),
+            "state_bytes": state_bytes, "peak": peak, "save_s": save_s, "load_s": load_s,
+            "resumed": resumed, "resumed_step_ms": float(np.mean(resumed_ms)),
+            "max_diff_one": off_one, "max_diff_resumed": off_resumed}
+
+
+def _m_rank(rank: int, n: int, tmp: str) -> None:
+    """One rank of ``mesh_ranks``: its card, the NCCL process group, path M-b;
+    its result as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=rank, world_size=n)
+    try:
+        out = mesh_ranks_run(dev, n, os.path.join(tmp, "ck"))
+    finally:
+        dist.destroy_process_group()
+    with open(f"{tmp}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def mesh_ranks(n: int) -> list:
+    """``python3 chip_smoke.py --m-ranks N``: path M-b across N cards of one
+    host, one spawned process per card (NCCL); the checkpoint goes to a
+    temporary directory.  -> every rank's result."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_m_rank, args=(n, tmp), nprocs=n, start_method="spawn")
+        results = []
+        for r in range(n):
+            with open(f"{tmp}/rank{r}.json") as f:
+                results.append(json.load(f))
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -3344,15 +3653,18 @@ def main() -> int:
         print("chip_smoke: torch finds no CUDA device; run this on a machine with a GPU",
               file=sys.stderr)
         return 2
-    if "--l-ranks" in sys.argv:  # path L-a across cards: python3 chip_smoke.py --l-ranks 4
-        n = int(sys.argv[sys.argv.index("--l-ranks") + 1])
+    for flag, run, key in (("--l-ranks", seq_parallel_ranks, "path_l_ranks"),
+                           ("--m-ranks", mesh_ranks, "path_m_ranks")):
+        if flag not in sys.argv:  # path L-a or M-b across cards: --l-ranks 4, --m-ranks 4
+            continue
+        n = int(sys.argv[sys.argv.index(flag) + 1])
         if torch.cuda.device_count() < n:
-            raise AssertionError(f"--l-ranks {n} needs {n} cards, "
+            raise AssertionError(f"{flag} {n} needs {n} cards, "
                                  f"found {torch.cuda.device_count()}")
         env = phase_env()
-        results = seq_parallel_ranks(n)
+        results = run(n)
         log(f"wall {time.perf_counter() - t_start:.1f} s")
-        log(json.dumps({"path_l_ranks": results, "power": env["smi"]}))
+        log(json.dumps({key: results, "power": env["smi"]}))
         log(env["smi"])
         log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                "kind": torch.cuda.get_device_name(0),
@@ -3395,6 +3707,7 @@ def main() -> int:
             trained_audio = phase_train_audio(dev)
             dp = phase_dp(dev)
             seq = phase_seq_parallel(dev)
+            mesh_train = phase_mesh_train(dev, trained)
         finally:
             dist.destroy_process_group()
     train_cell = lambda arch: dry[(  # noqa: E731
@@ -3418,7 +3731,9 @@ def main() -> int:
                                         "step_peak_bytes": run["peak_bytes"],
                                         "predicted_peak": dp["predicted_peak"]
                                         if name == "int8" else None})
-           for name, run in dp["runs"].items()],
+           for name, run in dp["runs"].items()]
+        + [("M-a", TRAIN["arch"], {**mesh_train, "batch": TRAIN["global_batch"],
+                                   "seq": TRAIN["seq"], "predicted_peak": None})],
     }
     roofline = phase_roofline(dry, timed, env["smi"])
 
@@ -3427,7 +3742,8 @@ def main() -> int:
              "serve_mla": served_mla["counts"], "serve_vl": served_vl["counts"],
              "train": trained["counts"], "train_socket": trained_socket["counts"],
              "train_audio": trained_audio["counts"], "dryrun": dry_counts,
-             "train_dp": dp["counts"], "seq_parallel": seq["counts"]}
+             "train_dp": dp["counts"], "seq_parallel": seq["counts"],
+             "train_mesh": mesh_train["counts"]}
     needs = {"trace": ("moments_and_labels",), "width": ("moments_and_labels",),
              "serve": ("flash_attention",), "serve_ssm": ("mamba_scan",),
              "serve_moe": ("flash_attention",), "serve_mla": ("flash_attention",),
@@ -3436,7 +3752,8 @@ def main() -> int:
         for name in names:
             if paths[path][name] <= 0:
                 raise AssertionError(f"main path {path} never launched {name}: {paths[path]}")
-    for path in ("dryrun", "train_dp"):  # path K runs the plain versions, as JAX's probe
+    # path K runs the plain versions, as JAX's probe; path M trains, as JAX does
+    for path in ("dryrun", "train_dp", "train_mesh"):
         if any(paths[path].values()):
             raise AssertionError(f"path {path} launched a port kernel: {paths[path]}")
 
@@ -3554,6 +3871,10 @@ def main() -> int:
                                   "quant_max_ratio", "reduce_pass_ms", "compress_added_ms")}}}))
     log(json.dumps({"path_l": {"model": seq["model"], "bodies": seq["bodies"],
                                "counts": seq["counts"], "power": env["smi"]}}))
+    log(json.dumps({"path_m": {**{k: mesh_train[k] for k in (
+        "losses", "grad_norms", "event_ms", "host_ms", "step_ms", "step_host_ms", "tok_per_s",
+        "peak_bytes", "path_e_losses", "max_rel_loss_diff", "embed_placements", "parity",
+        "counts")}, "mfu": roofline["M-a/train"]["mfu"], "power": env["smi"]}}))
     log(env["smi"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,9 @@
 """The error for a part of the JAX package the port does not have yet.
 
-Options of the copied modules whose backing module is not ported
-(parameter placements on a mesh, FSDP, expert and sequence parallelism,
-the dry run on a mesh: item 11) raise it when asked for, instead of
-importing ``repro`` or skipping the option quietly.
+Options of the copied modules whose backing module is not ported (the
+decode caches' placements and the dry run on a mesh: item 11) raise it
+when asked for, instead of importing ``repro`` or skipping the option
+quietly.
 """
 from __future__ import annotations
 

@@ -38,6 +38,7 @@ from typing import Any, Dict, List, Sequence
 from .core import stats as _host
 from .core.torch_ad import NCOLS
 from .device import resolve
+from .launch.sharding import block_index, placements
 from .models.common import ModelConfig, param_shapes
 from .tree import map as _tree_map, paths as _paths
 
@@ -169,16 +170,6 @@ def block_from_jax(arr, spec, mesh_shape: Sequence[int], axis_names: Sequence[st
     arr = np.asarray(arr)
     if len(spec) > arr.ndim:
         raise ValueError(f"spec {spec} has more entries than the array's {arr.ndim} dims")
-    coord = dict(zip(axis_names, np.unravel_index(rank, tuple(mesh_shape))))
-    size = dict(zip(axis_names, mesh_shape))
-    index = []
-    for dim, entry in enumerate(spec):
-        axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
-        n, i = 1, 0
-        for a in axes:
-            n, i = n * size[a], i * size[a] + int(coord[a])
-        if arr.shape[dim] % n:
-            raise ValueError(f"dim {dim} of {arr.shape} does not split {n} ways ({spec})")
-        step = arr.shape[dim] // n
-        index.append(slice(i * step, (i + 1) * step))
-    return arr[tuple(index)].copy()
+    coord = np.unravel_index(rank, tuple(mesh_shape))
+    index = block_index(arr.shape, placements(spec, axis_names), tuple(mesh_shape), coord)
+    return arr[index].copy()

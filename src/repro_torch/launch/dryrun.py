@@ -31,8 +31,9 @@ each growing with the depth at its own rate.
 The meta device cannot run a kernel, so prefill's attention and scan take
 their plain versions (``ShardCtx(plain=True)``); ``bytes accessed`` is op
 by op, unfused, an upper bound.  One device: ``--mesh none``, ``devices``
-1, ``tp`` 1.  ``--mesh single|multi`` (JAX's 256- and 512-chip meshes)
-wait for ROADMAP.md item 11.
+1, ``tp`` 1.  ``--mesh single|multi`` (JAX's 256- and 512-chip meshes,
+which ``launch.mesh.make_production_mesh`` builds over a process group of
+that many ranks) wait for ROADMAP.md item 11.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k

@@ -9,14 +9,25 @@ back to the next-best dim.
 
 Each rule is a pure function returning the per-dim spec that JAX's
 ``PartitionSpec`` holds, as a tuple: an entry is None (replicated), an axis
-name, or a tuple of axis names.  Turning specs into placements on a real
-mesh (``param_shardings``, ``batch_shardings``, ``cache_shardings``) waits
-for DTensor: ROADMAP.md item 11.
+name, or a tuple of axis names.  :class:`Sharding` is JAX's
+``NamedSharding``: a spec on a ``DeviceMesh`` and the DTensor placements it
+describes (an axis on tensor dim i is ``Shard(i)`` on that mesh dim, a
+tuple of axes ``Shard(i)`` on each of them in the tuple's order, every
+other mesh dim ``Replicate()``).  ``param_shardings`` and
+``batch_shardings`` give one per leaf, and :func:`place` turns a tree that
+every rank holds whole into DTensors of each rank's own blocks, with no
+collective.  ``cache_shardings`` (Mamba's decode state split over d_inner)
+waits for ROADMAP.md item 11.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Any, Optional, Sequence, Tuple
 
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from .. import tree as T
 from .._unported import unported
 from ..models.common import ModelConfig
 from .mesh import batch_axes as mesh_batch_axes, batch_shards, tp_size
@@ -165,13 +176,113 @@ def cache_pspec(path_keys, shape, cfg: ModelConfig, mesh) -> Spec:
     return ()
 
 
+# -------------------------------------------------------------- placements
+def _axes(entry) -> Tuple[str, ...]:
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def placements(spec: Spec, dim_names: Sequence[str]) -> Tuple[Any, ...]:
+    """The DTensor placements over mesh dims ``dim_names`` that ``spec``
+    describes.  DTensor splits a tensor dim sharded over several mesh dims
+    major to minor in mesh-dim order, so a tuple entry must name them in
+    that order (the rules name the batch axes so)."""
+    names = tuple(dim_names)
+    out: list = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        idx = [names.index(a) for a in _axes(entry)]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: the axes of dim {dim} are not in mesh order {names}")
+        for i in idx:
+            if isinstance(out[i], Shard):
+                raise ValueError(f"spec {spec} uses mesh axis {names[i]!r} twice")
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """JAX's ``NamedSharding``: ``spec`` on ``mesh`` (a ``DeviceMesh``, or
+    anything with ``mesh_dim_names`` and ``shape``)."""
+
+    mesh: Any
+    spec: Spec
+
+    @property
+    def placements(self) -> Tuple[Any, ...]:
+        return placements(self.spec, self.mesh.mesh_dim_names)
+
+
+def block_index(shape: Sequence[int], placements_: Sequence[Any], mesh_shape: Sequence[int],
+                coord: Sequence[int]) -> Tuple[slice, ...]:
+    """The index of the block a rank at mesh coordinate ``coord`` holds of
+    a global tensor of ``shape`` under ``placements_`` (even splits)."""
+    n, i = [1] * len(shape), [0] * len(shape)
+    for d, p in enumerate(placements_):
+        if isinstance(p, Shard):
+            n[p.dim], i[p.dim] = n[p.dim] * mesh_shape[d], i[p.dim] * mesh_shape[d] + coord[d]
+    index = []
+    for dim, size in enumerate(shape):
+        if size % n[dim]:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split {n[dim]} ways "
+                             f"({tuple(placements_)})")
+        step = size // n[dim]
+        index.append(slice(i[dim] * step, (i[dim] + 1) * step))
+    return tuple(index)
+
+
+def local_block(t: torch.Tensor, sharding: Sharding) -> torch.Tensor:
+    """This rank's block of ``t`` (whole on every rank) under ``sharding``:
+    a copy where it is cut, ``t`` itself where it is not."""
+    mesh = sharding.mesh
+    index = block_index(t.shape, sharding.placements, tuple(mesh.shape), mesh.get_coordinate())
+    if all(s.stop - s.start == n for s, n in zip(index, t.shape)):
+        return t
+    return t[index].clone()
+
+
+def place(tree, shardings):
+    """``tree``'s leaves, which every rank holds whole, as DTensors of the
+    rank's blocks (``DTensor.from_local``: no collective; ``distribute_tensor``
+    would scatter from one rank what every rank already holds).  A leaf
+    whose sharding is None stays as it is."""
+
+    def one(t, sharding):
+        if sharding is None:
+            return t
+        return DTensor.from_local(local_block(t, sharding), sharding.mesh, sharding.placements,
+                                  run_check=False)
+
+    return T.map(one, tree, shardings)
+
+
+def _map_keyed(fn, tree, key=None, stacked: bool = False):
+    """``fn(key, stacked, leaf)`` over a parameter tree: ``key`` is the
+    leaf's last dict key, ``stacked`` whether a list lies on its path (the
+    leaves of ``params["layers"][pos]``), as JAX reads ``DictKey`` and
+    ``SequenceKey``."""
+    if isinstance(tree, dict):
+        return {k: _map_keyed(fn, v, k, stacked) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_keyed(fn, v, key, True) for v in tree]
+    return fn(key, stacked, tree)
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
+
+
 def param_shardings(cfg: ModelConfig, params_tree, mesh, fsdp: bool = True,
                     mamba_tp: bool = True):
-    raise unported("param_shardings (DTensor placements)", 11)
+    """Tree of :class:`Sharding` matching ``params_tree`` (tensors, or
+    shape tuples as ``models.common.param_shapes`` gives them)."""
+    tp, dpa, dp = tp_size(mesh), mesh_batch_axes(mesh), batch_shards(mesh)
+    return _map_keyed(lambda key, stacked, leaf: Sharding(
+        mesh, param_pspec(key, _shape(leaf), tp, dpa, dp, stacked, fsdp, mamba_tp)), params_tree)
 
 
 def batch_shardings(cfg: ModelConfig, spec, mesh):
-    raise unported("batch_shardings (DTensor placements)", 11)
+    """{name: :class:`Sharding`} of a batch (tensors or shape tuples)."""
+    return {k: Sharding(mesh, batch_pspec(cfg, k, _shape(v), mesh)) for k, v in spec.items()}
 
 
 def cache_shardings(cfg: ModelConfig, cache_tree, mesh):

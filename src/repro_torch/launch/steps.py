@@ -10,10 +10,14 @@ JAX donates it (``donate=False`` works on a copy instead).
 device (shapes and dtypes, no data), which ``launch.dryrun`` runs under
 the counting context; :func:`make_dp_train_step` is JAX's ``shard_map``
 data-parallel step with its collectives written out in
-``torch.distributed``.  :func:`make_shard_ctx` takes a mesh: prefill and
-decode then run sequence and expert parallelism over its model axis
-(``models.model.ShardCtx``).  Train steps and cells on a mesh (gradients,
-parameter placements, FSDP) wait for ROADMAP.md queue 1, item 11.
+``torch.distributed``, on a mesh of any number of dims.
+:func:`make_shard_ctx` takes a mesh: prefill and decode then run sequence
+and expert parallelism over its model axis (``models.model.ShardCtx``),
+and the train step runs there on a state placed by
+:func:`train_state_shardings` (``launch.sharding.place``): every rank
+passes the global batch, computes its block, and updates its own blocks
+of the state.  Cells on a mesh (the dry run's) wait for ROADMAP.md queue
+1, item 11.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from ..models import model as M
 from ..models.common import ModelConfig, init_params, param_shapes
 from ..models.model import ShardCtx
 from ..optim.adamw import OptConfig, apply_updates, init_opt_state
+from . import sharding as SH
 from .mesh import batch_axes as mesh_batch_axes, batch_shards
 
 
@@ -89,45 +94,56 @@ def _split(name: str, x: torch.Tensor, nm: int) -> torch.Tensor:
     return x.reshape((nm, x.shape[0] // nm) + tuple(x.shape[1:]))
 
 
-def build_train_step(
+def build_grad_step(
     cfg: ModelConfig, ctx: ShardCtx, opts: StepOptions, microbatch: Optional[int] = None
 ) -> Callable:
-    if ctx.mesh is not None:  # the collectives carry no autograd
-        raise unported("the train step on a mesh (gradients on a mesh)", 11)
-    nm_cfg = microbatch if microbatch is not None else max(opts.microbatch, 1)
+    """The train step's gradients: fn(params, batch) -> (metrics, grads),
+    ``jax.value_and_grad(has_aux=True)`` of ``loss_and_metrics``, with
+    ``microbatch`` steps accumulated as JAX's ``lax.scan`` (the global
+    batch split ``(nm, B/nm, ...)``, each part then cut to the rank's rows
+    on a mesh).  On a mesh each grad is a DTensor of its leaf's placement."""
+    nm = microbatch if microbatch is not None else max(opts.microbatch, 1)
 
     def loss_and_grads(params, batch):
-        """-> (loss, metrics, grads tree): jax.value_and_grad(has_aux=True)."""
         live = [t.detach().requires_grad_(True) for t in T.leaves(params)]
         with torch.enable_grad():
             loss, metrics = M.loss_and_metrics(cfg, T.unflatten(params, live), batch, ctx,
                                                opts.ce_chunk)
             grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, live)]
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            T.unflatten(params, grads)
+        return {k: v.detach() for k, v in metrics.items()}, T.unflatten(params, grads)
+
+    def grad_step(params, batch):
+        if nm <= 1:
+            return loss_and_grads(params, batch)
+        mb = {k: _split(k, v, nm) for k, v in batch.items()}
+        gsum = [torch.zeros_like(p, dtype=torch.float32) for p in T.leaves(params)]
+        lsum = torch.zeros((), dtype=torch.float32, device=gsum[0].device)
+        for i in range(nm):  # summed in microbatch order, as lax.scan
+            metrics, grads = loss_and_grads(params, {k: v[i] for k, v in mb.items()})
+            for acc, g in zip(gsum, T.leaves(grads)):
+                acc.add_(g)
+            lsum = lsum + metrics["loss"]
+            del grads
+        zero = torch.zeros_like(lsum)
+        return {"loss": lsum / nm, "accuracy": zero, "tokens": zero}, \
+            T.unflatten(params, [g / nm for g in gsum])
+
+    return grad_step
+
+
+def build_train_step(
+    cfg: ModelConfig, ctx: ShardCtx, opts: StepOptions, microbatch: Optional[int] = None
+) -> Callable:
+    """JAX's train step: :func:`build_grad_step`, then AdamW on the state
+    in place.  On a mesh (``ctx.mesh``) the state is placed by
+    :func:`train_state_shardings` and every rank passes the global batch."""
+    grad_step = build_grad_step(cfg, ctx, opts, microbatch)
 
     def train_step(state, batch) -> Tuple[Dict, Dict[str, torch.Tensor]]:
         if not opts.donate:
             state = T.map(torch.clone, state)
-        if nm_cfg > 1:
-            nm = nm_cfg
-            mb = {k: _split(k, v, nm) for k, v in batch.items()}
-            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                    for p in T.leaves(state["params"])]
-            lsum = torch.zeros((), dtype=torch.float32, device=gsum[0].device)
-            for i in range(nm):  # summed in microbatch order, as lax.scan
-                loss, _, grads = loss_and_grads(state["params"], {k: v[i] for k, v in mb.items()})
-                for acc, g in zip(gsum, T.leaves(grads)):
-                    acc.add_(g)
-                lsum = lsum + loss
-                del grads
-            grads = T.unflatten(state["params"], [g / nm for g in gsum])
-            del gsum
-            zero = torch.zeros_like(lsum)
-            metrics = {"loss": lsum / nm, "accuracy": zero, "tokens": zero}
-        else:
-            _, metrics, grads = loss_and_grads(state["params"], batch)
+        metrics, grads = grad_step(state["params"], batch)
         master = state["master"] if "master" in state else state["params"]
         new_master, opt_state, ostats = apply_updates(
             master, grads, {"m": state["m"], "v": state["v"], "step": state["step"]}, opts.opt,
@@ -167,12 +183,15 @@ def make_dp_train_step(
     cfg: ModelConfig, mesh, opt: OptConfig = OptConfig(),
     compress: bool = True, ce_chunk: int = 512,
 ):
-    """Data-parallel step over a 1-D ``DeviceMesh``, the gradients
-    all-reduced leaf by leaf (int8-compressed with error feedback, or a
-    plain mean), as JAX's ``shard_map`` step computes.
+    """Data-parallel step over a ``DeviceMesh`` of any number of dims, the
+    gradients all-reduced leaf by leaf over all its ranks (int8-compressed
+    with error feedback, or a plain mean), as JAX's ``shard_map`` step
+    computes.  A mesh of more than one dim takes a new process group of
+    its ranks (every rank of the default group must build the step).
 
-    Each rank runs it on its slice of the global batch (rank r: rows
-    r·B/n to (r+1)·B/n, JAX's batch sharding) with the same state.  The
+    Each rank runs it on its slice of the global batch (rank r, row-major
+    over the mesh's dims: rows r·B/n to (r+1)·B/n, JAX's batch sharding
+    ``P(axes)``) with the same state.  The
     local loss and gradients take the default ``ShardCtx()`` (no remat, as
     JAX); then one all-reduce per parameter leaf (``compressed_psum`` or a
     sum divided by n), AdamW, and the loss averaged over the ranks (one
@@ -187,9 +206,10 @@ def make_dp_train_step(
     """
     from ..optim.compression import compressed_psum, init_error_state
 
-    if mesh.ndim != 1:
-        raise unported("make_dp_train_step on a mesh of more than one dim", 11)
-    group = mesh.get_group()
+    # JAX reduces over every mesh axis: one group of all the mesh's ranks,
+    # row-major over its dims (a rank's place in it picks its batch rows)
+    group = mesh.get_group() if mesh.ndim == 1 else \
+        dist.new_group(mesh.mesh.flatten().tolist())
     ndev = mesh.size()
     ctx = ShardCtx()
 
@@ -226,6 +246,16 @@ def make_dp_train_step(
         return state, err, {"loss": loss / n, **stats}
 
     return step, init_error_state
+
+
+def train_state_shardings(cfg: ModelConfig, state, mesh, opts: StepOptions = StepOptions()):
+    """The train state's :class:`launch.sharding.Sharding` tree on ``mesh``,
+    as JAX's ``make_cell`` places it: params, m, v (and the master) by
+    ``param_shardings`` with ``opts.fsdp`` and ``opts.mamba_tp``; ``step``
+    None (not placed: every rank holds it)."""
+    out = {k: SH.param_shardings(cfg, state[k], mesh, opts.fsdp, opts.mamba_tp)
+           for k in ("params", "m", "v", "master") if k in state}
+    return {**out, "step": None}
 
 
 def make_train_state(cfg: ModelConfig, seed: int = 0, master_in_opt: bool = False,

@@ -217,6 +217,7 @@ def mamba_mixer_seq_parallel(p, u, cfg: ModelConfig, ctx, chunk: int = 128,
          kernel where ``ctx.kernels`` holds and no gradient is taken, else
          ``_ssm_scan_fused``;
       3. an all-gather of every rank's (exp(A·ΣΔt), h_last);
+         both gathers carry autograd where a gradient is taken;
       4. the prefix combine (:func:`prefix_state`) and
          C_t·A_cum_t·h_in (:func:`seq_shard_output`).
 
@@ -227,11 +228,14 @@ def mamba_mixer_seq_parallel(p, u, cfg: ModelConfig, ctx, chunk: int = 128,
     xz = u @ p["in_proj"]
     x, z = xz.chunk(2, dim=-1)
     tails = ctx.all_gather(x[:, -(K - 1):])
-    left = tails[r - 1] if r > 0 else torch.zeros_like(tails[0])
+    # rank 0 reads no other rank's rows: its zeros are tied to the gathers,
+    # so that under autograd every rank runs their backward (a collective)
+    left = tails[r - 1] if r > 0 else tails[0] * 0
     kernel = ctx.kernels and not torch.is_grad_enabled()
     x, dt, Cm, A, y0, pair = seq_shard_scan(p, x, left, cfg, chunk, kernel)
     pairs = ctx.all_gather(pair)
-    out = seq_shard_output(p, x, z, dt, Cm, A, y0, prefix_state(pairs, r), chunk, u.dtype)
+    h_in = prefix_state(pairs, r) if r > 0 else pairs[0][1] * 0
+    out = seq_shard_output(p, x, z, dt, Cm, A, y0, h_in, chunk, u.dtype)
     if not with_state:
         return out
     return out, {"h": prefix_state(pairs, len(pairs)), "conv": tails[-1]}

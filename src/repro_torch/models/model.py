@@ -28,6 +28,11 @@ Differences of form, not of values, from the JAX package:
     cross-entropy chunk's unembedding), so autograd carries float32
     gradients back to them.
   * ``jax.checkpoint`` is ``torch.utils.checkpoint`` (non-reentrant).
+
+On a mesh (:class:`ShardCtx`) :func:`loss_and_metrics` also takes the
+placed train state of ``launch.sharding.place``: DTensor leaves, each
+gathered where it is used (:func:`collectives.gathered`) and its gradient
+reduced back to its placement by the gather's backward.
 """
 from __future__ import annotations
 
@@ -38,11 +43,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
-from .._unported import unported
 from ..device import resolve
 from ..kernels import ops
+from . import collectives as C
 from . import layers as L
 from . import mamba as MB
 from .common import MAMBA, MLA, MOE, NONE, SWA, LayerSpec, ModelConfig
@@ -65,8 +71,10 @@ class ShardCtx:
     sequence over the model axis) and Mamba's states over the batch axes
     only.  The collectives are ``torch.distributed`` calls on the mesh's
     groups (``mesh.get_group(name)``): an all-gather into a list and
-    all-reduces (sum, max), which gloo and NCCL both take.  They carry no
-    autograd: gradients on a mesh wait for ROADMAP.md item 11.  JAX's
+    all-reduces (sum, max), which gloo and NCCL both take.  Where a
+    gradient is taken the gather and the sum carry autograd
+    (:mod:`collectives`: their backwards are a reduce-scatter and an
+    all-reduce), so the loss's gradient passes through every body.  JAX's
     head-sharding constraints are placements and change no value, so they
     have no counterpart.
 
@@ -119,6 +127,11 @@ class ShardCtx:
         return self.mesh.get_local_rank(self.model_axis)
 
     @property
+    def model_dim(self) -> int:
+        """The model axis's index among the mesh's dims."""
+        return _dim_names(self.mesh).index(self.model_axis)
+
+    @property
     def dp(self) -> int:
         return math.prod(self._size(a) for a in self.batch_axes) if self.mesh is not None else 1
 
@@ -150,6 +163,18 @@ class ShardCtx:
             i = i * self._size(a) + self.mesh.get_local_rank(a)
         return slice(i * B // self.dp, (i + 1) * B // self.dp)
 
+    @property
+    def replicas(self) -> int:
+        """How many ranks compute each of this pass's tokens: the model
+        axis where the sequence is replicated over it, times the batch axes
+        where the batch is."""
+        return (1 if self.seq_shard else self.tp) * (1 if self.batch_split else self.dp)
+
+    def token_dims(self) -> Tuple[str, ...]:
+        """The mesh dims over which the ranks hold different tokens."""
+        return (self.batch_axes if self.batch_split else ()) + \
+            ((self.model_axis,) if self.seq_shard else ())
+
     def for_pass(self, B: int, S: int) -> "ShardCtx":
         """The context of one pass over a global (B, S) batch, its layout
         resolved: ``batch_shardable`` to whether the batch axes split B,
@@ -161,19 +186,19 @@ class ShardCtx:
 
     # ------------------------------------------------- model-axis collectives
     def all_gather(self, t: torch.Tensor, axis: Optional[str] = None) -> List[torch.Tensor]:
-        """Every rank's ``t`` along ``axis`` (default the model axis), in rank order."""
-        group = self.mesh.get_group(axis or self.model_axis)
-        out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(out, t.contiguous(), group=group)
-        return out
+        """Every rank's ``t`` along ``axis`` (default the model axis), in
+        rank order; with autograd where a gradient is taken."""
+        return C.all_gather(t, self.mesh.get_group(axis or self.model_axis))
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum over the model axis, in place."""
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.mesh.get_group(self.model_axis))
-        return t
+        """Sum over the model axis: in place, or with autograd where a
+        gradient is taken."""
+        return C.all_reduce(t, self.mesh.get_group(self.model_axis))
 
     def pmax(self, t: torch.Tensor) -> torch.Tensor:
-        """Max over the model axis, in place."""
+        """Max over the model axis, in place, without a gradient: the
+        merge it stabilises (:func:`merge_partials`) does not depend on it."""
+        t = t.detach()
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.mesh.get_group(self.model_axis))
         return t
 
@@ -528,9 +553,20 @@ def apply_block(cfg, spec: LayerSpec, p, x, cos, sin, ctx: ShardCtx = ShardCtx()
 
 
 # ----------------------------------------------------------------- forward
+def _block_params(cfg, spec: LayerSpec, p, ctx: ShardCtx) -> Dict[str, torch.Tensor]:
+    """The block's weights as it computes with them: compute-dtype casts
+    (no-ops for compute weights), and a placed leaf gathered whole after
+    its cast, the expert leaves under expert parallelism to the rank's
+    experts (:func:`collectives.gathered`)."""
+    keep = ctx.model_dim if spec.mlp == MOE and ctx.ep_info(cfg) is not None else None
+    return {k: C.gathered(v, keep if k in EXPERT_KEYS else None,
+                          None if k in _F32_KEYS else cfg.compute_dtype) for k, v in p.items()}
+
+
 def _cast_block(cfg, spec: LayerSpec, p, x, cos, sin, ctx: ShardCtx) -> torch.Tensor:
-    """apply_block on compute-dtype casts of ``p`` (no-ops for compute weights)."""
-    return apply_block(cfg, spec, _cast_block_params(p, cfg.compute_dtype), x, cos, sin, ctx)
+    """apply_block on :func:`_block_params`: inside the block's checkpoint,
+    so the recompute gathers again and one layer's weights are live."""
+    return apply_block(cfg, spec, _block_params(cfg, spec, p, ctx), x, cos, sin, ctx)
 
 
 def _unstacked(params) -> List[List[Dict[str, torch.Tensor]]]:
@@ -538,8 +574,9 @@ def _unstacked(params) -> List[List[Dict[str, torch.Tensor]]]:
     one ``unbind`` per stacked leaf.  Autograd then stacks each leaf's
     gradient once; indexing the stacked tensor once per period instead
     gives every period a full-size zero gradient to add up (at gemma-2b's
-    width 18 × 7.9 GB of fills and adds per step)."""
-    per_pos = [{k: v.unbind(0) for k, v in layer.items()} for layer in params["layers"]]
+    width 18 × 7.9 GB of fills and adds per step).  A placed leaf unbinds
+    its local block (:func:`collectives.unbind`)."""
+    per_pos = [{k: C.unbind(v) for k, v in layer.items()} for layer in params["layers"]]
     n_periods = len(next(iter(per_pos[0].values())))
     return [[{k: t[period] for k, t in pos.items()} for pos in per_pos]
             for period in range(n_periods)]
@@ -624,15 +661,28 @@ def loss_and_metrics(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx()
     unembed+CE over the sequence, each chunk under a checkpoint, keeps live
     logits at (B, chunk, V); the backward pass recomputes each chunk's
     logits from the final hidden states.  -> (loss, {"loss", "accuracy",
-    "tokens"}), float32 scalars on the weights' device.  On one device:
-    the collectives on a mesh carry no autograd.
+    "tokens"}), float32 scalars on the weights' device.
+
+    On a mesh every rank passes the global batch and computes its block of
+    tokens (:func:`_inputs`); the embedding, the final norm and the
+    unembedding are gathered once, outside the chunks.  The metrics are
+    JAX's global ones: the sums over the ranks that hold different tokens
+    (``ShardCtx.token_dims``), divided as JAX divides them.  The returned
+    loss has that value, and the gradient of the rank's share: its masked
+    CE sum over the global mask count, divided by the ranks that compute
+    the same tokens (``ShardCtx.replicas``).  The shares add up to the
+    loss over the ranks, so each leaf's gradient is the sum of the ranks'
+    (the gathers' backwards reduce it to the leaf's placement).
     """
-    if ctx.mesh is not None:
-        raise unported("the loss and its gradients on a mesh", 11)
-    x, cos, sin, ctx = _inputs(cfg, params["embed"], batch, ctx)
+    # a placed leaf is gathered in the compute dtype where that is wider:
+    # the embedding lookup and the unembedding compute in it either way
+    top = {k: C.gathered(v, dtype=torch.promote_types(v.dtype, cfg.compute_dtype)
+                         if isinstance(v, DTensor) else None)
+           for k, v in params.items() if k != "layers"}
+    x, cos, sin, ctx = _inputs(cfg, top["embed"], batch, ctx)
     x = _layers(cfg, params, x, cos, sin, ctx)
     B, S, _ = x.shape
-    labels = batch["labels"]
+    labels = _local_labels(ctx, batch["labels"])
     cs = min(ce_chunk, S)
     if S % cs != 0:
         cs = S  # fall back to unchunked
@@ -640,11 +690,38 @@ def loss_and_metrics(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx()
     lsum, msum, hits = zero, zero, zero
     for c in range(S // cs):
         sl = slice(c * cs, (c + 1) * cs)
-        l, m, h = checkpoint(_ce_chunk, cfg, params, x[:, sl], labels[:, sl],
+        l, m, h = checkpoint(_ce_chunk, cfg, top, x[:, sl], labels[:, sl],
                              use_reentrant=False)
         lsum, msum, hits = lsum + l, msum + m, hits + h
+    if ctx.mesh is not None:
+        return _meshed_loss(ctx, lsum, msum, hits)
     loss = lsum / torch.clamp(msum, min=1.0)
     return loss, {"loss": loss, "accuracy": hits / torch.clamp(msum, min=1.0), "tokens": msum}
+
+
+def _local_labels(ctx: ShardCtx, labels: torch.Tensor) -> torch.Tensor:
+    """The labels of the rank's tokens, cut as :func:`_inputs` cuts the batch."""
+    if ctx.mesh is None:
+        return labels
+    labels = labels[ctx.batch_rows(labels.shape[0])]
+    if ctx.seq_shard:
+        n = labels.shape[1] // ctx.tp
+        labels = labels[:, ctx.model_rank * n:(ctx.model_rank + 1) * n]
+    return labels
+
+
+def _meshed_loss(ctx: ShardCtx, lsum, msum, hits):
+    """The rank's local sums -> (loss, metrics) as :func:`loss_and_metrics`
+    returns them on a mesh."""
+    sums = torch.stack([lsum, msum, hits]).detach()
+    for axis in ctx.token_dims():
+        dist.all_reduce(sums, group=ctx.mesh.get_group(axis))
+    lsum_g, msum_g, hits_g = sums.unbind(0)
+    denom = torch.clamp(msum_g, min=1.0)
+    share = lsum / denom / ctx.replicas
+    loss = lsum_g / denom
+    return loss + (share - share.detach()), {"loss": loss, "accuracy": hits_g / denom,
+                                             "tokens": msum_g}
 
 
 # ------------------------------------------------------------------- cache

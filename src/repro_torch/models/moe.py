@@ -28,7 +28,7 @@ are replicated over the expert axis and rank r holds experts
 [r·E/n, (r+1)·E/n) (``moe_gate``, ``moe_up``, ``moe_down`` cut to them).
 Every rank routes all tokens identically, computes its own experts'
 contributions (:func:`moe_local`), and one all-reduce over the axis sums
-them.  In float32 that equals ``ep=None`` up to the order of that sum.
+them (with autograd where a gradient is taken: ``collectives.all_reduce``).  In float32 that equals ``ep=None`` up to the order of that sum.
 """
 from __future__ import annotations
 
@@ -37,8 +37,8 @@ import math
 from typing import Dict, Optional
 
 import torch
-import torch.distributed as dist
 
+from . import collectives as C
 from . import layers as L
 from .common import ModelConfig
 
@@ -101,8 +101,7 @@ def moe_block(
         raise ValueError(f"expert parallelism over {ep.n_shards} ranks takes this rank's "
                          f"{E // ep.n_shards} of {E} experts, got {p['moe_gate'].shape[0]}")
     out = moe_local(p, x, cfg, ep.mesh.get_local_rank(ep.axis) * (E // ep.n_shards))
-    dist.all_reduce(out, group=ep.mesh.get_group(ep.axis))
-    return out
+    return C.all_reduce(out, ep.mesh.get_group(ep.axis))
 
 
 def moe_local(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,

@@ -1,3 +1,3 @@
-"""Optimizers (port of ``repro.optim``; ``compression`` waits for ROADMAP.md
-queue 1, item 11)."""
+"""Optimizers (port of ``repro.optim``): AdamW, placed on a mesh too, and the
+int8 gradient compression of the data-parallel step."""
 from . import adamw  # noqa: F401

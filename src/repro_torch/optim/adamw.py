@@ -13,6 +13,11 @@ the new m, v and parameters into the old tensors, which the caller gives up
 (JAX donates the state instead).  At gemma-2b's full width that keeps the
 update's transient memory to a few copies of one leaf (the embedding:
 256000 × 2048 float32, 2.1 GB), not a second 30 GB state.
+
+On a mesh the state and the gradients are DTensors of one placement per
+leaf (``launch.sharding.place``): the update is elementwise, so each rank
+updates its own blocks, and :func:`global_norm` sums each leaf's squares
+over the ranks that hold its shards, never twice over a replicated copy.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from .. import tree as T
 
@@ -61,12 +68,33 @@ def init_opt_state(params) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's block on this rank (its storage), else ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the float32 sum of squares, summed leaf by leaf in
-    ``jax.tree.leaves`` order."""
+    ``jax.tree.leaves`` order.  A DTensor leaf's squares are summed over
+    its block, then over the mesh dims that shard it (one all-reduce per
+    mesh dim for all the leaves it shards)."""
+    leaves = T.leaves(tree)
+    squares = [torch.sum(torch.square(_local(g).to(torch.float32))) for g in leaves]
+    placed = [g for g in leaves if isinstance(g, DTensor)]
+    if placed:
+        sq = torch.stack(squares)
+        mesh = placed[0].device_mesh
+        for dim in range(mesh.ndim):
+            flags = [isinstance(g, DTensor) and g.placements[dim].is_shard() for g in leaves]
+            if any(flags):
+                cut = torch.tensor(flags, device=sq.device)
+                part = torch.where(cut, sq, 0.0)
+                dist.all_reduce(part, group=mesh.get_group(dim))
+                sq = torch.where(cut, part, sq)
+        squares = sq.unbind(0)
     total = 0
-    for g in T.leaves(tree):
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
+    for s in squares:
+        total = total + s
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
@@ -75,7 +103,7 @@ def apply_updates(
     params, grads, opt_state, cfg: OptConfig
 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """-> (params, opt_state, {"grad_norm", "lr"}); the returned params, m
-    and v are the tensors passed in, updated in place."""
+    and v are the tensors passed in, updated in place (a DTensor's block)."""
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -94,7 +122,7 @@ def apply_updates(
 
     for p, g, m, v in zip(T.leaves(params), T.leaves(grads), T.leaves(opt_state["m"]),
                           T.leaves(opt_state["v"])):
-        upd(p, g, m, v)
+        upd(_local(p), _local(g), _local(m), _local(v))
     return params, {"m": opt_state["m"], "v": opt_state["v"], "step": step}, {
         "grad_norm": gnorm, "lr": lr,
     }

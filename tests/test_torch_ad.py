@@ -148,7 +148,8 @@ assert not bad, bad
 assert "repro_torch.core.torch_ad" in names and "repro_torch.kernels.moments" in names, names
 assert {"repro_torch.compat", "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
         "repro_torch.launch.mesh", "repro_torch.launch.sharding",
-        "repro_torch.optim.compression"} <= set(names), names
+        "repro_torch.optim.compression", "repro_torch.models.collectives",
+        "repro_torch.checkpoint.ckpt"} <= set(names), names
 print("ISOLATED", len(names))
 """
 
@@ -199,7 +200,8 @@ def test_port_sources_import_no_jax_and_nothing_of_repro_at_any_depth():
             "repro_torch.launch.dryrun", "repro_torch.launch.mesh",
             "repro_torch.launch.sharding", "repro_torch.optim.compression",
             "repro_torch.models.mamba", "repro_torch.launch.steps",
-            "repro_torch.convert"} <= walked
+            "repro_torch.convert", "repro_torch.models.collectives",
+            "repro_torch.checkpoint.ckpt", "repro_torch.optim.adamw"} <= walked
     # the check sees nested imports: a function-level one is caught
     probe = REPO / "src" / "repro_torch" / "trace" / "monitor.py"
     assert "repro_torch.fault.health" in set(_imported_modules(probe))

@@ -102,16 +102,20 @@ def test_checkpoint_manager_async(tmp_path):
 
 def test_checkpoint_reshard(tmp_path):
     """Twin of tests/test_substrates.py:173: restore onto another layout.
-    Without meshes the port's elastic restore is a change of dtype and
-    device taken from the target; ``shardings=`` waits for item 11."""
+    Without a mesh the restore is a change of dtype and device taken from
+    the target, and a leaf whose sharding is None is held whole; the
+    four-rank reshard onto ``P("data", None)`` is
+    tests/test_torch_placements.py::test_checkpoint_reshard_onto_four_ranks."""
     p = str(tmp_path / "ck2")
     CK.save(p, 1, {"w": torch.arange(32.0).reshape(8, 4)})
     target = {"w": torch.empty((8, 4), dtype=torch.float64)}
     step, restored = CK.load(p, target=target)
     assert step == 1 and restored["w"].dtype == torch.float64
     np.testing.assert_array_equal(restored["w"].numpy(), np.arange(32.0).reshape(8, 4))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        CK.load(p, target=target, shardings={"w": None})
+    step, whole = CK.load(p, target=target, shardings={"w": None})
+    assert step == 1 and torch.equal(whole["w"], restored["w"])
+    with pytest.raises(ValueError, match="pass target"):
+        CK.load(p, shardings={"w": None})
     with pytest.raises(ValueError, match="differ from the target"):
         CK.load(p, target={"v": target["w"]})
 

@@ -374,29 +374,17 @@ def test_probe_option_gives_the_probe_context():
     assert plain.kernels and plain.direct_threshold() == 1024 and plain.mamba_chunk(4096) == 128
 
 
-@pytest.mark.parametrize("call", ["dryrun_mesh_single", "dryrun_cli_multi", "param_shardings",
-                                  "batch_shardings", "cache_shardings", "production_mesh",
-                                  "dp_step_2d_mesh", "train_step_on_a_mesh", "loss_on_a_mesh",
+@pytest.mark.parametrize("call", ["dryrun_mesh_single", "dryrun_cli_multi", "cache_shardings",
                                   "make_cell_on_a_mesh"])
 def test_placements_on_a_mesh_raise_item_11(call):
-    from types import SimpleNamespace
-
     from repro_torch.launch import dryrun as TDR
-    from repro_torch.launch import mesh as TMESH
     from repro_torch.launch import sharding as TSH
 
     cfg = tconfigs.smoke("gemma-2b")
     calls = {
         "dryrun_mesh_single": lambda: TDR.run_cell("gemma-2b", "train_4k", "single"),
         "dryrun_cli_multi": lambda: TDR.main(["--all", "--mesh", "multi"]),
-        "param_shardings": lambda: TSH.param_shardings(cfg, {}, None),
-        "batch_shardings": lambda: TSH.batch_shardings(cfg, {}, None),
         "cache_shardings": lambda: TSH.cache_shardings(cfg, {}, None),
-        "production_mesh": lambda: TMESH.make_production_mesh(multi_pod=True),
-        "dp_step_2d_mesh": lambda: TS.make_dp_train_step(cfg, SimpleNamespace(ndim=2)),
-        "train_step_on_a_mesh": lambda: TS.build_train_step(
-            cfg, TM.ShardCtx(mesh=object()), TS.StepOptions()),
-        "loss_on_a_mesh": lambda: TM.loss_and_metrics(cfg, {}, {}, TM.ShardCtx(mesh=object())),
         "make_cell_on_a_mesh": lambda: TS.make_cell("gemma-2b", "train_4k", mesh=object()),
     }
     with pytest.raises(NotImplementedError, match="item 11"):
