@@ -141,14 +141,36 @@ non-zero):
            2 layers, against the same step without a mesh (path K-c's
            criterion); no port kernel launched (training runs the plain
            versions, as JAX does);
+  N        serving with the weights and caches placed across ranks, over the
+           same NCCL group: (N-a i) the dry run of gemma-2b x train_4k and
+           jamba-v0.1-52b x decode_32k on JAX's 256-rank mesh and
+           qwen3-moe-30b-a3b x prefill_32k on its 512-rank mesh, rank 0
+           counted in a child process with its own fake process group:
+           per-device peak, FLOPs, wire bytes; (ii) falcon-mamba-7b's decode
+           layer at full width as four virtual ranks of the tensor-parallel
+           Mamba decode (its state split over d_inner) against mamba_decode,
+           after a 1024-token prefill of 4 rows, device times beside the
+           unsharded step's; (iii) jamba-v0.1-52b at its published width cut
+           to one period (8 layers, 26.6 GB of bf16 weights) served by
+           launch.serve on a one-rank (1, 1) mesh with path C's traffic, the
+           weights built placed leaf by leaf, the caches by cache_shardings'
+           rule; its logits held against the same weights unplaced on one
+           device within the plain baseline + 2e-2 (prefill launches flash
+           and the scan);
 
     python3 chip_smoke.py --m-ranks 4   # path M-b on four cards, one process
                                         # each: gemma-2b on a (2, 2) mesh with
                                         # fsdp and seq_shard, 6 steps against
                                         # one device's, saved after step 3,
                                         # restored onto (1, 4), steps 3-5 again
+    python3 chip_smoke.py --n-ranks 4   # path N-b on four cards, one process
+                                        # each: jamba-v0.1-52b and
+                                        # qwen3-moe-30b-a3b served whole on
+                                        # (1, 4) (experts split four ways) with
+                                        # path C's traffic; jamba's one period
+                                        # on (1, 4) against one device
 
-then the script's wall time, the path K, L and M JSON lines, the card's name and
+then the script's wall time, the path K, L, M and N JSON lines, the card's name and
 power limit, one JSON line describing every ported kernel, and last
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 2 and prints
 no result.
@@ -332,6 +354,22 @@ SEQ_TOL = 2e-2  # the card's bf16 smoke tolerance, beyond the plain-attention ba
 MESH_PARITY = ("gemma-2b", "granite-moe-1b-a400m", "falcon-mamba-7b", "minicpm3-4b")
 MESH_LOSS_RTOL = 0.35  # tests/test_training.py:112: two runs' losses, relative
 MESH_RANKS = dict(save_after=3, loss_atol=5e-2)  # tests/test_elastic.py:66
+# Path N: serving with the weights and caches placed across ranks.  N-a (the
+# one-card run): (i) the dry run of MESH_DRY's cells on JAX's production
+# meshes, in a child process that owns a fake process group; (ii) TP_DECODE:
+# falcon-mamba-7b's decode layer at full width as four virtual ranks of the
+# tensor-parallel Mamba decode against mamba_decode; (iii) SERVE_MESH at its
+# published width cut to one period, served by launch.serve on a one-rank
+# (1, 1) NCCL mesh (weights by placed_compute_params, caches by
+# cache_shardings' rule) with SERVE's traffic, its logits held against the
+# same weights unplaced on one device within the plain baseline + SEQ_TOL.
+# N-b (--n-ranks N, N cards): MESH_SERVE_ARCHS served whole on (1, N), and
+# (iii) on N ranks against one device.
+MESH_DRY = (("gemma-2b", "train_4k", "single"), ("jamba-v0.1-52b", "decode_32k", "single"),
+            ("qwen3-moe-30b-a3b", "prefill_32k", "multi"))
+TP_DECODE = dict(arch="falcon-mamba-7b", ranks=4, batch=4, prompt_len=1024, steps=8)
+SERVE_MESH = "jamba-v0.1-52b"
+MESH_SERVE_ARCHS = ("jamba-v0.1-52b", "qwen3-moe-30b-a3b")
 SMOKE_TOL = {"float32": dict(rtol=1e-4, atol=1e-3),  # tests/test_torch_models.py:43
              "bfloat16": dict(rtol=2e-2, atol=2e-2)}  # tests/test_torch_models.py:229
 
@@ -3645,6 +3683,403 @@ def mesh_ranks(n: int) -> list:
     return results
 
 
+# ------------------------------------------------------------- path N
+_MESH_DRY_SCRIPT = r"""
+import json, logging, sys, time
+sys.path.insert(0, sys.argv[1])
+logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+from repro_torch.launch import dryrun as D
+
+out = {}
+for arch, shape, mesh in json.loads(sys.argv[2]):
+    t0 = time.perf_counter()
+    rec = D.run_cell(arch, shape, mesh, extrapolate_depth=True)
+    rec.pop("counted", None)
+    out[f"{arch} {shape} {mesh}"] = dict(rec, wall_s=time.perf_counter() - t0)
+print(json.dumps(out))
+"""
+
+
+def mesh_dryrun() -> dict:
+    """Path N-a(i): launch.dryrun.run_cell of each MESH_DRY cell on JAX's
+    production mesh, rank 0 counted, in a child process that starts its own
+    fake process group of 512 ranks (this process holds the NCCL group; the
+    child sees no card).  Prefill and decode cells are counted at 1 and 2
+    periods and extrapolated (``extrapolate_depth``: qwen3-moe's 48 layers
+    of 32k-token chunked attention would take ~16 minutes of host time op
+    by op).  -> {cell: record}."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _MESH_DRY_SCRIPT, str(ROOT / "src"),
+                        json.dumps(MESH_DRY)], capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    if r.returncode != 0:
+        raise AssertionError(f"mesh dry run: exit {r.returncode}: {r.stderr[-3000:]}")
+    recs = json.loads(r.stdout.strip().splitlines()[-1])
+    for (arch, shape, mesh), (cell, rec) in zip(MESH_DRY, recs.items()):
+        tag = f"mesh_dryrun[{cell}]"
+        m, c = rec.get("memory", {}), rec.get("cost", {})
+        if rec["status"] != "ok" or rec["devices"] != {"single": 256, "multi": 512}[mesh] \
+                or not c.get("flops", 0) > 0 or not rec["wire_bytes_per_device"] > 0 \
+                or rec["collectives"]["all-gather"]["count"] <= 0:
+            raise AssertionError(f"{tag}: {rec}")
+        log(f"{tag}: rank 0 of {rec['devices']}: peak {m['peak_bytes'] / 1e9:.3f} GB per device "
+            f"(arguments {m['argument_size_in_bytes'] / 1e9:.3f} GB, fits_80gb_hbm "
+            f"{m['fits_80gb_hbm']}), flops {c['flops']:.4e}, bytes accessed "
+            f"{c['bytes_accessed']:.4e}, wire bytes {rec['wire_bytes_per_device']:.4e} ("
+            + ", ".join(f"{op} {int(v['count'])}" for op, v in rec["collectives"].items()
+                        if v["count"])
+            + f"), {rec['aten_ops']} aten ops, microbatch {rec.get('microbatch', 1)}, depth "
+            + ("extrapolated from 1 and 2 periods" if rec["depth_extrapolated"] else "counted")
+            + f"; in {rec['wall_s']:.1f} s")
+    log(f"mesh_dryrun: {len(recs)} cells in {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
+def tp_mamba_decode(dev) -> dict:
+    """Path N-a(ii): one full-width falcon-mamba-7b layer (bf16 weights from
+    SEED) after a TP_DECODE["prompt_len"]-token prefill of TP_DECODE["batch"]
+    rows (mamba_prefill: the scan kernel), then TP_DECODE["steps"] decode
+    steps run as TP_DECODE["ranks"] virtual ranks of the tensor-parallel
+    decode (mamba_decode_tp_in and _out, their partials summed in rank order
+    in float32 as mamba_decode_tp sums them) against mamba_decode on the
+    whole state: each step's output and conv state within SEQ_TOL (bf16),
+    the rank blocks of the float32 state within rtol SEQ_TOL, atol SEQ_TOL
+    of its largest element (Δt is a bf16 value, which the ranks' float32
+    sum rounds once where one device's GEMM rounds its own accumulation,
+    and each step's state carries it); the device time of the four ranks'
+    step beside the unsharded step's."""
+    import torch
+
+    from repro_torch.models import mamba as MB
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch, n, B, S, steps = (TP_DECODE[k] for k in ("arch", "ranks", "batch", "prompt_len", "steps"))
+    tag = f"tp_mamba_decode[{arch}]"
+    cfg, (p,) = _one_period(arch, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    _, state = MB.mamba_prefill(p, _bf16(dev, gen, B, S, cfg.d_model), cfg)
+    blocks = [MB.channel_block(cfg, r, n) for r in range(n)]
+
+    def split(st):
+        return [{"h": st["h"][:, c].clone(), "conv": st["conv"][..., c].clone()} for c in blocks]
+
+    def tp_step(u, states):
+        parts = [MB.mamba_decode_tp_in(p, u, states[r], cfg, r, n) for r in range(n)]
+        dbl = torch.stack([part[3] for part in parts]).sum(0).to(u.dtype)
+        outs = [MB.mamba_decode_tp_out(p, *parts[r][:3], dbl, states[r], cfg, r, n)
+                for r in range(n)]
+        return torch.stack(outs).sum(0).to(u.dtype)[:, None]
+
+    ranks = split(state)
+    errs = {"y": 0.0, "h": 0.0, "conv": 0.0}
+    for _ in range(steps):
+        u = _bf16(dev, gen, B, 1, cfg.d_model)
+        want, _ = MB.mamba_decode(p, u, state, cfg)
+        got = tp_step(u, ranks)
+        errs["y"] = max(errs["y"], _held(tag, "decode output", got, want, SEQ_TOL, SEQ_TOL))
+    h_top = float(state["h"].abs().max())
+    for r, c in enumerate(blocks):
+        errs["h"] = max(errs["h"], _held(tag, f"rank {r}'s h", ranks[r]["h"], state["h"][:, c],
+                                         SEQ_TOL, SEQ_TOL * h_top))
+        errs["conv"] = max(errs["conv"], _held(tag, f"rank {r}'s conv", ranks[r]["conv"],
+                                               state["conv"][..., c], SEQ_TOL, SEQ_TOL))
+    u = _bf16(dev, gen, B, 1, cfg.d_model)
+    scratch, scratch_ranks = {k: v.clone() for k, v in state.items()}, split(state)
+    one_ms = _device_ms(lambda: MB.mamba_decode(p, u, scratch, cfg))
+    tp_ms = _device_ms(lambda: tp_step(u, scratch_ranks))
+    log(f"{tag}: one layer at full width (d_inner {cfg.d_inner}), {B} rows after a {S}-token "
+        f"prefill, {steps} decode steps as {n} virtual ranks of {cfg.d_inner // n} channels: "
+        f"output max abs diff {errs['y']:.4g} (within {SEQ_TOL}), h {errs['h']:.4g} (rtol "
+        f"{SEQ_TOL}, atol {SEQ_TOL} x {h_top:.4g}), conv {errs['conv']:.4g}; device ms per step: "
+        f"{n} ranks {tp_ms:.4f}, unsharded {one_ms:.4f}")
+    del p, state, ranks, scratch, scratch_ranks
+    return {"max_abs_diff": errs, "tp_device_ms": tp_ms, "one_device_ms": one_ms,
+            "ranks": n, "batch": B, "prompt_len": S, "steps": steps}
+
+
+def _local_bytes(tree) -> int:
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import tree as T
+
+    return sum((t.to_local() if isinstance(t, DTensor) else t).untyped_storage().nbytes()
+               for t in T.leaves(tree))
+
+
+def mesh_serve_held(tag: str, cfg, dev, whole, placed, mesh) -> dict:
+    """SERVE["batch"] prompts of SERVE["prompt_len"] tokens (from SEED) and
+    SERVE["max_new"] greedy tokens: (a) one device on ``whole`` (prefill
+    through the kernels), (b) the same with attention and the scan through
+    their plain versions, fed (a)'s tokens (the card's bf16 baseline), (c)
+    on ``mesh`` with the ``placed`` weights, caches by cache_shardings'
+    rule, fed (a)'s tokens.  (c)'s logits (prefill's last position and
+    every step) may differ from (a)'s by (b)'s largest difference + SEQ_TOL
+    at most.  -> the differences, (c)'s prefill ms per wave (CUDA events),
+    decode ms per step, collectives per decode step and peak."""
+    import torch
+
+    from repro_torch import compat
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref, mamba_scan_ref
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import model as M
+
+    B, S, n_new = SERVE["batch"], SERVE["prompt_len"], SERVE["max_new"]
+    V = cfg.vocab
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, V, (B, S), generator=gen, device=dev, dtype=torch.int32)
+    max_seq = S + n_new
+    meshed = TS.make_shard_ctx(cfg, mesh, B, TS.StepOptions())
+
+    def run(ctx, params, forced=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        logits, cache = M.prefill(cfg, params, {"tokens": toks}, ctx, max_seq=max_seq)
+        outs, own = [logits[:, -1, :V].float().cpu()], [logits[:, -1, :V].argmax(-1)]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(n_new):
+            feed = (own[-1] if forced is None else forced[:, i].to(dev))[:, None].to(torch.int32)
+            logits, cache = M.decode_step(cfg, params, cache, feed, ctx)
+            outs.append(logits[:, 0, :V].float().cpu())
+            own.append(logits[:, 0, :V].argmax(-1))
+        end.record()
+        end.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        return torch.stack(outs, 1), torch.stack(own, 1).cpu(), start.elapsed_time(end) / n_new, \
+            peak, cache
+
+    la, ta, dec_a, _, cache = run(M.ShardCtx(), whole)
+    del cache
+    kernels = ops._fa.flash_attention, ops._ms.mamba_scan
+    ops._fa.flash_attention, ops._ms.mamba_scan = flash_attention_ref, mamba_scan_ref
+    try:
+        lb, _, _, _, cache = run(M.ShardCtx(), whole, forced=ta)
+    finally:
+        ops._fa.flash_attention, ops._ms.mamba_scan = kernels
+    del cache
+    lc, tc, dec_c, peak_c, cache = run(meshed, placed, forced=ta)
+    for name, lg in (("one device", la), ("plain", lb), ("meshed", lc)):
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{tag}: non-finite logits in the {name} run")
+    base, err = float((lb - la).abs().max()), float((lc - la).abs().max())
+    if err > base + SEQ_TOL:
+        raise AssertionError(f"{tag}: meshed vs one-device logits max abs diff {err:.4g} exceeds "
+                             f"the plain baseline {base:.4g} by more than {SEQ_TOL}")
+    differ = (tc != ta).any(0)
+    first = int(differ.float().argmax()) if bool(differ.any()) else None
+    rec = compat.CollectiveRecorder()
+    with rec:
+        M.decode_step(cfg, placed, cache, toks[:, :1], meshed)
+    coll = R.collective_bytes(rec.collectives)
+    del cache
+    prefill_ms = cuda_ms(lambda: M.prefill(cfg, placed, {"tokens": toks}, meshed,
+                                           max_seq=max_seq), iters=2, warmup=1)
+    log(f"{tag}: {B} x {S} prompt tokens, {n_new} steps; (c) on the mesh with placed weights vs "
+        f"(a) one device: logits max abs diff {err:.4g}, (b) plain vs (a) {base:.4g}: held within "
+        f"the baseline + {SEQ_TOL}; (c)'s greedy choices "
+        + ("all equal to (a)'s" if first is None else
+           f"first differ at step {first} ({int(differ.sum())} of {n_new + 1} steps)")
+        + f"; meshed prefill {prefill_ms:.2f} ms per wave, decode {dec_c:.2f} ms per step (one "
+        f"device {dec_a:.2f}), peak {peak_c / 1e9:.3f} GB; collectives per decode step: "
+        + ", ".join(f"{op} {int(c['count'])} ({c['result_bytes'] / 1e9:.3f} GB)"
+                    for op, c in coll.items() if c["count"]))
+    return {"max_abs_diff": err, "baseline_max_abs_diff": base, "first_divergence": first,
+            "prefill_ms": prefill_ms, "decode_ms": dec_c, "one_device_decode_ms": dec_a,
+            "peak_bytes": peak_c, "decode_collectives": coll,
+            "prefill_mfu": R.mfu(cfg, "prefill", B, S, prefill_ms / 1e3)}
+
+
+def serve_on_mesh(dev, cfg, mesh, tag: str) -> dict:
+    """launch.serve.serve of ``cfg`` on ``mesh`` with SERVE's traffic, the
+    weights built placed from SEED leaf by leaf (placed_compute_params);
+    -> the run's tok/s, the weights' and peak bytes a rank holds, and its
+    placed weights (for the caller's checks)."""
+    import torch
+
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.serve import serve
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    placed = SH.placed_compute_params(cfg, SEED, mesh, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    param_bytes = _local_bytes(placed)
+    build_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = serve(arch=cfg.name, config=cfg, mesh=mesh, params=placed, seed=SEED, device=dev,
+                **SERVE)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    if out["requests"] != SERVE["n_requests"] or \
+            out["tokens"] != SERVE["n_requests"] * SERVE["max_new"]:
+        raise AssertionError(f"{tag}: {out['requests']} requests, {out['tokens']} tokens")
+    log(f"{tag}: {cfg.n_layers} layers at published width ({cfg.n_params():,} parameters), "
+        f"weights placed leaf by leaf in {build_s:.1f} s: {param_bytes / 1e9:.3f} GB a rank "
+        f"(build peak {build_peak / 1e9:.3f} GB); {out['requests']} requests, {out['tokens']} "
+        f"tokens in {serve_s:.2f} s, {out['tok_per_s']:.1f} tok/s; peak {peak / 1e9:.3f} GB")
+    return {"tok_per_s": out["tok_per_s"], "serve_s": serve_s, "param_bytes": param_bytes,
+            "build_s": build_s, "build_peak_bytes": build_peak, "peak_bytes": peak,
+            "placed": placed}
+
+
+def phase_mesh_serve(dev) -> dict:
+    """Path N-a (see MESH_DRY's comment): (i) the meshed dry run, (ii) the
+    tensor-parallel Mamba decode as virtual ranks, (iii) SERVE_MESH cut to
+    one period served on a one-rank (1, 1) NCCL mesh and held against the
+    same weights unplaced; every count set to 0 before and read after."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import compat, configs
+    from repro_torch import tree as T
+
+    zero_counts()
+    dry = mesh_dryrun()
+    tp = tp_mamba_decode(dev)
+    cfg = configs.get_config(SERVE_MESH)
+    one = dataclasses.replace(cfg, n_layers=cfg.period)
+    tag = f"serve_mesh[{SERVE_MESH}, one period]"
+    mesh = compat.make_mesh((1, 1), ("data", "model"), device=dev)
+    served = serve_on_mesh(dev, one, mesh, tag)
+    placed = served.pop("placed")
+    # on one rank each block is its whole leaf: the same weights, unplaced
+    whole = T.map(lambda t: t.to_local() if isinstance(t, DTensor) else t, placed)
+    held = mesh_serve_held(tag, one, dev, whole, placed, mesh)
+    del placed, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = read_counts()
+    for name in ("flash_attention", "mamba_scan"):
+        if counts[name] <= 0:
+            raise AssertionError(f"path N never launched {name}: {counts}")
+    return {"counts": counts, "dryrun": dry, "tp_decode": tp, "serve": served, "held": held}
+
+
+def mesh_serve_rank(dev, n: int) -> dict:
+    """Path N-b on one of ``n`` ranks (the NCCL group initialised): SERVE_MESH
+    cut to one period on (1, n) held against one device (the whole weights
+    built leaf by leaf on this rank's card); then each of MESH_SERVE_ARCHS
+    at full depth and width served on (1, n) (experts split over the model
+    axis), with its prefill ms per wave, decode ms per step and collectives
+    per decode step."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import compat, configs
+    from repro_torch.launch import sharding as SH
+
+    rank = dist.get_rank()
+    mesh = compat.make_mesh((1, n), ("data", "model"), device=dev)
+    cfg = configs.get_config(SERVE_MESH)
+    one = dataclasses.replace(cfg, n_layers=cfg.period)
+    tag = f"serve_mesh_ranks[{SERVE_MESH}, one period, rank {rank} of {n}]"
+    served = serve_on_mesh(dev, one, mesh, tag)
+    placed = served.pop("placed")
+    whole = SH.placed_compute_params(one, SEED, None, device=dev)  # whole, leaf by leaf
+    out = {"rank": rank, "one_period": {**served, **mesh_serve_held(tag, one, dev, whole, placed,
+                                                                   mesh)}}
+    del placed, whole
+    for arch in MESH_SERVE_ARCHS:
+        tag = f"serve_mesh_ranks[{arch}, rank {rank} of {n}]"
+        cfg = configs.get_config(arch)
+        served = serve_on_mesh(dev, cfg, mesh, tag)
+        placed = served.pop("placed")
+        out[arch] = {**served, **mesh_timed(tag, cfg, dev, placed, mesh)}
+        del placed
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_timed(tag: str, cfg, dev, placed, mesh) -> dict:
+    """A full model on ``mesh``: one prefill wave's ms (CUDA events, after a
+    warm-up), 16 decode steps' ms per step, the collectives of one decode
+    step (roofline.collective_bytes) and the peak."""
+    import torch
+
+    from repro_torch import compat
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import model as M
+
+    B, S = SERVE["batch"], SERVE["prompt_len"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev, dtype=torch.int32)
+    ctx = TS.make_shard_ctx(cfg, mesh, B, TS.StepOptions())
+    max_seq = S + SERVE["max_new"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    prefill = lambda: M.prefill(cfg, placed, {"tokens": toks}, ctx, max_seq=max_seq)  # noqa: E731
+    prefill_ms = cuda_ms(prefill, iters=2, warmup=1)
+    logits, cache = prefill()
+    nxt = torch.argmax(logits[:, -1, :cfg.vocab], -1)[:, None].to(torch.int32)
+    rec = compat.CollectiveRecorder()
+    with rec:
+        logits, cache = M.decode_step(cfg, placed, cache, nxt, ctx)
+    coll = R.collective_bytes(rec.collectives)
+    steps = 16
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(steps):
+        logits, cache = M.decode_step(cfg, placed, cache, nxt, ctx)
+        nxt = torch.argmax(logits[:, 0, :cfg.vocab], -1)[:, None].to(torch.int32)
+    end.record()
+    end.synchronize()
+    decode_ms = start.elapsed_time(end) / steps
+    if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
+        raise AssertionError(f"{tag}: non-finite decode logits")
+    peak = torch.cuda.max_memory_allocated(dev)
+    del cache, logits
+    log(f"{tag}: prefill {prefill_ms:.2f} ms per wave of {B} x {S}, decode {decode_ms:.2f} ms "
+        f"per step (CUDA events); peak {peak / 1e9:.3f} GB; collectives per decode step: "
+        + ", ".join(f"{op} {int(c['count'])} ({c['result_bytes'] / 1e9:.3f} GB)"
+                    for op, c in coll.items() if c["count"]))
+    return {"prefill_ms": prefill_ms, "decode_ms": decode_ms, "timed_peak_bytes": peak,
+            "decode_collectives": coll,
+            "prefill_mfu": R.mfu(cfg, "prefill", B, S, prefill_ms / 1e3),
+            "decode_mfu": R.mfu(cfg, "decode", B, S, decode_ms / 1e3)}
+
+
+def _n_rank(rank: int, n: int, tmp: str) -> None:
+    """One rank of ``mesh_serve_ranks``: its card, the NCCL process group,
+    path N-b; its result as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=rank, world_size=n)
+    try:
+        out = mesh_serve_rank(dev, n)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{tmp}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def mesh_serve_ranks(n: int) -> list:
+    """``python3 chip_smoke.py --n-ranks N``: path N-b across N cards of one
+    host, one spawned process per card (NCCL).  -> every rank's result."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_n_rank, args=(n, tmp), nprocs=n, start_method="spawn")
+        results = []
+        for r in range(n):
+            with open(f"{tmp}/rank{r}.json") as f:
+                results.append(json.load(f))
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -3654,8 +4089,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     for flag, run, key in (("--l-ranks", seq_parallel_ranks, "path_l_ranks"),
-                           ("--m-ranks", mesh_ranks, "path_m_ranks")):
-        if flag not in sys.argv:  # path L-a or M-b across cards: --l-ranks 4, --m-ranks 4
+                           ("--m-ranks", mesh_ranks, "path_m_ranks"),
+                           ("--n-ranks", mesh_serve_ranks, "path_n_ranks")):
+        if flag not in sys.argv:  # path L-a, M-b or N-b across cards: --l-ranks 4, ...
             continue
         n = int(sys.argv[sys.argv.index(flag) + 1])
         if torch.cuda.device_count() < n:
@@ -3708,6 +4144,7 @@ def main() -> int:
             dp = phase_dp(dev)
             seq = phase_seq_parallel(dev)
             mesh_train = phase_mesh_train(dev, trained)
+            mesh_serve = phase_mesh_serve(dev)
         finally:
             dist.destroy_process_group()
     train_cell = lambda arch: dry[(  # noqa: E731
@@ -3743,11 +4180,12 @@ def main() -> int:
              "train": trained["counts"], "train_socket": trained_socket["counts"],
              "train_audio": trained_audio["counts"], "dryrun": dry_counts,
              "train_dp": dp["counts"], "seq_parallel": seq["counts"],
-             "train_mesh": mesh_train["counts"]}
+             "train_mesh": mesh_train["counts"], "serve_mesh": mesh_serve["counts"]}
     needs = {"trace": ("moments_and_labels",), "width": ("moments_and_labels",),
              "serve": ("flash_attention",), "serve_ssm": ("mamba_scan",),
              "serve_moe": ("flash_attention",), "serve_mla": ("flash_attention",),
-             "serve_vl": ("flash_attention",), "seq_parallel": ("flash_attention", "mamba_scan")}
+             "serve_vl": ("flash_attention",), "seq_parallel": ("flash_attention", "mamba_scan"),
+             "serve_mesh": ("flash_attention", "mamba_scan")}
     for path, names in needs.items():
         for name in names:
             if paths[path][name] <= 0:
@@ -3875,6 +4313,11 @@ def main() -> int:
         "losses", "grad_norms", "event_ms", "host_ms", "step_ms", "step_host_ms", "tok_per_s",
         "peak_bytes", "path_e_losses", "max_rel_loss_diff", "embed_placements", "parity",
         "counts")}, "mfu": roofline["M-a/train"]["mfu"], "power": env["smi"]}}))
+    log(json.dumps({"path_n": {"dryrun": {cell: {k: rec[k] for k in (
+        "devices", "rank", "memory", "cost", "collectives", "wire_bytes_per_device",
+        "aten_ops", "wall_s")} for cell, rec in mesh_serve["dryrun"].items()},
+        "tp_decode": mesh_serve["tp_decode"], "serve": mesh_serve["serve"],
+        "held": mesh_serve["held"], "counts": mesh_serve["counts"], "power": env["smi"]}}))
     log(env["smi"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

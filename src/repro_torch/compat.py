@@ -20,8 +20,13 @@ included) and adds up
   * live bytes: every storage the step creates, from its first output until
     Python and autograd let it go (a saved tensor stays live until the
     backward frees it), and the peak of their sum with the arguments';
-  * the collectives the step issues (``c10d`` ops), as
-    :class:`CollectiveRecorder` alone records them.
+  * the collectives the step runs (``c10d`` ops, and the
+    ``_c10d_functional`` ops DTensor's redistributions run), as
+    :class:`CollectiveRecorder` alone records them; neither kind counts as
+    an aten op or as bytes accessed (their bytes cross the wire).
+
+A DTensor counts as its local block, the rank's own bytes: the costs are
+per device, as JAX's ``cost_analysis`` of a partitioned executable.
 
 On the meta device nothing is allocated or computed, so a full-width step
 is counted in seconds of host time (the dry run).  Eager counting counts
@@ -38,7 +43,9 @@ import weakref
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_map_only
 from torch.utils.flop_counter import flop_registry
 
 from .device import resolve
@@ -55,6 +62,17 @@ _C10D = {
     "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
     "send": "collective-permute",
 }
+# _c10d_functional operation (DTensor's collectives) -> its HLO name; the
+# op's output holds the result
+_FUNCTIONAL = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce", "all_reduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather", "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter", "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+_COLLECTIVE_NAMESPACES = frozenset({"c10d", "_c10d_functional"})
 
 # aten ops whose every output element is one transcendental (XLA's count)
 TRANSCENDENTAL = frozenset({
@@ -66,7 +84,10 @@ TRANSCENDENTAL = frozenset({
 
 
 def _tensors(tree) -> List[torch.Tensor]:
-    """Every tensor in nested lists, tuples and dicts."""
+    """Every tensor in nested lists, tuples and dicts; a DTensor as its
+    local block."""
+    if isinstance(tree, DTensor):
+        return [tree._local_tensor]
     if isinstance(tree, torch.Tensor):
         return [tree]
     if isinstance(tree, (list, tuple)):
@@ -86,10 +107,12 @@ def storage_bytes(tree) -> Dict[int, int]:
 
 
 class CollectiveRecorder(TorchDispatchMode):
-    """Records each collective (c10d op) issued under it as (op, result
-    bytes), op by JAX's HLO name; ``roofline.collective_bytes`` sums them.
-    It sees ``torch.distributed``'s collectives on any backend (gloo, NCCL),
-    as they pass the dispatcher."""
+    """Records each collective run under it as (op, result bytes), op by
+    JAX's HLO name; ``roofline.collective_bytes`` sums them.  It sees
+    ``torch.distributed``'s collectives (c10d ops) on any backend (gloo,
+    NCCL, a fake group), as they pass the dispatcher, and the functional
+    collectives (``_c10d_functional`` ops) of DTensor's redistributions;
+    ``wait_tensor`` and the like are no collective."""
 
     def __init__(self):
         super().__init__()
@@ -97,11 +120,16 @@ class CollectiveRecorder(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        out = func(*args, **kwargs)
         if func.namespace == "c10d":
             op = _C10D.get(func._opname)
             if op is not None:  # the first argument holds the result (sent) tensors
                 self.collectives.append((op, sum(_nbytes(t) for t in _tensors(args[0]))))
-        return func(*args, **kwargs)
+        elif func.namespace == "_c10d_functional":
+            op = _FUNCTIONAL.get(func._opname)
+            if op is not None:  # the output holds the result
+                self.collectives.append((op, sum(_nbytes(t) for t in _tensors(out))))
+        return out
 
 
 class CostCounter(CollectiveRecorder):
@@ -154,7 +182,7 @@ class CostCounter(CollectiveRecorder):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = super().__torch_dispatch__(func, types, args, kwargs)
-        if func.namespace == "c10d":
+        if func.namespace in _COLLECTIVE_NAMESPACES:
             return out
         self.ops += 1
         info = self._info.get(func)
@@ -173,7 +201,10 @@ class CostCounter(CollectiveRecorder):
             return out  # a view: no bytes move
         self.bytes_accessed += sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
         if formula is not None:
-            self.flops += formula(*args, **kwargs, out_val=out)
+            local = lambda t: t._local_tensor  # noqa: E731 - a DTensor's own block
+            self.flops += formula(*tree_map_only(DTensor, local, args),
+                                  **tree_map_only(DTensor, local, kwargs),
+                                  out_val=tree_map_only(DTensor, local, out))
         elif pointwise:
             self.flops += sum(t.numel() for t in outs)
         if transcendental:

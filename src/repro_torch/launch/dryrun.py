@@ -31,19 +31,32 @@ each growing with the depth at its own rate.
 The meta device cannot run a kernel, so prefill's attention and scan take
 their plain versions (``ShardCtx(plain=True)``); ``bytes accessed`` is op
 by op, unfused, an upper bound.  One device: ``--mesh none``, ``devices``
-1, ``tp`` 1.  ``--mesh single|multi`` (JAX's 256- and 512-chip meshes,
-which ``launch.mesh.make_production_mesh`` builds over a process group of
-that many ranks) wait for ROADMAP.md item 11.
+1, ``tp`` 1.
+
+``--mesh single|multi|both``: JAX's 256- and 512-chip production meshes
+(``launch.mesh.make_production_mesh``), counted on rank 0.  No XLA
+partitions the step: the port's meshed step is one rank's eager SPMD
+program (every rank passes the global batch, or its placed rows, and
+computes its blocks), so rank 0's step under the counter is what a
+device runs, as JAX's ``cost_analysis`` is per device; its collectives
+run on a ``"fake"`` process group (no data moves) and are recorded.  The
+process owns that group: without one the dry run starts a fake group of
+512 ranks (the 256-rank mesh takes its first 256, as JAX takes
+``devices[:n]``), and a real group in place makes it raise.  Rank 0 is
+not every rank: it computes no halo in the sequence-parallel Mamba mixer
+(``seq_shard``), and holds the first block of every split leaf.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k
-  python -m repro_torch.launch.dryrun --all [--skip-existing] [--probes]
+  python -m repro_torch.launch.dryrun --all [--mesh none|single|multi|both]
+      [--skip-existing] [--probes]
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses as dc
 import json
+import logging
 import os
 import sys
 import time
@@ -51,12 +64,41 @@ import traceback
 from typing import Dict, Tuple
 
 from .. import configs
-from .._unported import unported
 from ..compat import CostCounter, cost_analysis, storage_bytes
 from . import roofline as R
+from .mesh import batch_shards, make_production_mesh, tp_size
 from .steps import StepOptions, auto_microbatch, make_cell
 
-DEVICES, TP = 1, 1  # one card, no model axis
+FAKE_WORLD = 512  # the fake process group the dry run starts: the larger mesh's ranks
+MESHES = {"none": ("none",), "single": ("single",), "multi": ("multi",),
+          "both": ("single", "multi")}
+
+
+def production_mesh(name: str):
+    """JAX's production mesh ``name`` ("single": (16, 16), "multi": (2, 16,
+    16)) as rank 0 of a fake process group sees it, on the CPU device type
+    (meta tensors move nowhere).  Starts a fake group of :data:`FAKE_WORLD`
+    ranks when none is initialised; raises when a real one is, since the
+    dry run never runs a collective that moves data."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=FAKE_WORLD)
+    elif dist.get_backend() != "fake":
+        raise RuntimeError(f"the dry run on a mesh counts rank 0 of a fake process group; "
+                           f"a {dist.get_backend()} group is in place")
+    if dist.get_rank() != 0:
+        raise RuntimeError(f"the dry run counts rank 0, this process is rank {dist.get_rank()}")
+    return make_production_mesh(multi_pod=name == "multi", device_type="cpu")
+
+
+def _devices_dp_tp(mesh) -> Tuple[int, int, int]:
+    """(devices, data-parallel size, model-axis size): (1, 1, 1) on one device."""
+    if mesh is None:
+        return 1, 1, 1
+    return mesh.size(), batch_shards(mesh), tp_size(mesh)
 
 
 def count(cell) -> dict:
@@ -92,8 +134,17 @@ _MEMORY = ("peak_bytes", "argument_size_in_bytes", "output_size_in_bytes",
            "alias_size_in_bytes")
 
 
-def evaluate(cfg, shape: str, opts: StepOptions) -> Tuple[dict, Dict[str, dict]]:
-    """The cell's counts at full depth and full batch.
+def evaluate(cfg, shape: str, opts: StepOptions, mesh=None,
+             extrapolate_depth: bool = False) -> Tuple[dict, Dict[str, dict]]:
+    """The cell's counts at full depth and full batch (on ``mesh``: rank 0's).
+
+    With ``extrapolate_depth`` a prefill or decode cell of more than 2
+    periods is counted at 1 and 2 periods and every count, the peak
+    included, extrapolated to the full depth, C(1) + (n − 1)(C(2) − C(1)):
+    each period runs the same ops and leaves the same cache blocks behind
+    (tests/test_torch_mesh_dryrun.py holds it equal to the direct count at
+    3 periods).  A 32k-token prefill counts ~150,000 aten ops a layer (the
+    plain chunked attention), ~20 s of host time each.
 
     A cell of at most 2 microbatches is counted as it is.  A train cell of
     NM > 2 microbatches is counted at full depth with 2 of them (memory
@@ -109,17 +160,28 @@ def evaluate(cfg, shape: str, opts: StepOptions) -> Tuple[dict, Dict[str, dict]]
     NP = cfg.n_periods
     NM = 1
     if cell.mode == "train":
-        NM = opts.microbatch or auto_microbatch(cfg, B, S, DEVICES)
+        NM = opts.microbatch or auto_microbatch(cfg, B, S, _devices_dp_tp(mesh)[1])
 
     def at(npd, nm):
         pcfg = cfg if npd == NP else dc.replace(cfg, n_layers=cfg.period * npd)
-        return count(make_cell(pcfg, shape, None, dc.replace(opts, microbatch=nm),
+        return count(make_cell(pcfg, shape, mesh, dc.replace(opts, microbatch=nm),
                                batch=B // NM * nm))
+
+    if extrapolate_depth and cell.mode != "train" and NP > 2:
+        make_cell(dc.replace(cfg, n_layers=cfg.period), shape, mesh, opts).run()  # see below
+        vals = {1: at(1, 1), 2: at(2, 1)}
+        out = {k: _lerp(vals[1][k], vals[2][k], NP) for k in _COSTS + _MEMORY}
+        out["collectives"] = {
+            op: {k: _lerp(vals[1]["collectives"][op][k], vals[2]["collectives"][op][k], NP)
+                 for k in ("count", "result_bytes", "wire_bytes")}
+            for op in vals[1]["collectives"]}
+        out["microbatch"] = 1
+        return out, {f"p{p}m1": v for p, v in vals.items()}
 
     # what a process makes once (M-RoPE's per-device section ids) would be
     # counted by its first count only: one period runs first, uncounted, so
     # every count sees the same ops whatever ran before
-    make_cell(dc.replace(cfg, n_layers=cfg.period), shape, None,
+    make_cell(dc.replace(cfg, n_layers=cfg.period), shape, mesh,
               dc.replace(opts, microbatch=min(NM, 2)), batch=B // NM * min(NM, 2)).run()
     full = at(NP, min(NM, 2))
     vals = {(NP, min(NM, 2)): full}
@@ -154,7 +216,7 @@ def evaluate(cfg, shape: str, opts: StepOptions) -> Tuple[dict, Dict[str, dict]]
             for op in full["collectives"]
         }
         # the batch argument at its full size
-        full_args = sum(storage_bytes(make_cell(cfg, shape, None, opts).args).values())
+        full_args = sum(storage_bytes(make_cell(cfg, shape, mesh, opts).args).values())
         out["peak_bytes"] += full_args - out["argument_size_in_bytes"]
         out["argument_size_in_bytes"] = full_args
     out["microbatch"] = NM
@@ -165,14 +227,13 @@ def probe_costs(cfg, shape: str, mesh, opts_kw, microbatch: int) -> dict:
     """Cost accounting of the probe cells (single-block attention,
     whole-sequence Mamba chunks, ``ce_chunk = S``) at 1 and 2 periods,
     extrapolated as JAX's: total = C(1) + (n_periods − 1)·(C(2) − C(1)).
-    Counted eagerly, the probe's costs are exactly affine in the periods."""
-    if mesh is not None:
-        raise unported("probe_costs on a mesh", 11)
+    Counted eagerly, the probe's costs are exactly affine in the periods.
+    On ``mesh`` rank 0's costs, its collectives among them."""
     vals = {}
     for npd in (1, 2):
         pcfg = dc.replace(cfg, n_layers=cfg.period * npd)
         opts = StepOptions(**{**opts_kw, "probe": True, "microbatch": microbatch})
-        c = count(make_cell(pcfg, shape, None, opts))
+        c = count(make_cell(pcfg, shape, mesh, opts))
         vals[npd] = {k: c[k] for k in ("flops", "bytes_accessed", "transcendentals",
                                        "wire_bytes", "collectives")}
     NP = cfg.n_periods
@@ -194,26 +255,35 @@ def probe_costs(cfg, shape: str, mesh, opts_kw, microbatch: int) -> dict:
     return out
 
 
-def run_cell(arch, shape: str, mesh: str = "none", opts_kw=None, probes: bool = False) -> dict:
-    """One cell's record (``arch`` a config name or a ``ModelConfig``)."""
-    if mesh != "none":
-        raise unported(f"the dry run on --mesh {mesh}", 11)
+def run_cell(arch, shape: str, mesh: str = "none", opts_kw=None, probes: bool = False,
+             extrapolate_depth: bool = False) -> dict:
+    """One cell's record (``arch`` a config name or a ``ModelConfig``);
+    ``mesh`` "none" (one device), "single" or "multi" (rank 0 of JAX's
+    production mesh, :func:`production_mesh`); ``extrapolate_depth`` as in
+    :func:`evaluate` (recorded as ``depth_extrapolated``)."""
     cfg = configs.get_config(arch) if isinstance(arch, str) else arch
     name = arch if isinstance(arch, str) else cfg.name
     ok, why = configs.cell_applicable(cfg, shape)
-    rec = {"arch": name, "shape": shape, "mesh": mesh, "devices": DEVICES,
+    rec = {"arch": name, "shape": shape, "mesh": mesh,
+           "devices": {"none": 1, "single": 256, "multi": 512}[mesh],
            "status": "skipped", "reason": why}
     if not ok:
         return rec
+    on = None if mesh == "none" else production_mesh(mesh)
+    devices, _, tp = _devices_dp_tp(on)
+    if on is not None:
+        rec["rank"] = 0  # the rank whose step is counted
     opts = StepOptions(**(opts_kw or {}))
     t0 = time.time()
-    cell = make_cell(cfg, shape, None, opts)
+    cell = make_cell(cfg, shape, on, opts)
     t1 = time.time()
-    ev, points = evaluate(cfg, shape, opts)
+    ev, points = evaluate(cfg, shape, opts, on, extrapolate_depth)
     t2 = time.time()
     # lower_s: building the cell; compile_s: counting it (JAX: lower, compile)
     rec.update(status="ok", lower_s=round(t1 - t0, 2), compile_s=round(t2 - t1, 2),
-               mode=cell.mode, opts=str(opts), counted=points)
+               mode=cell.mode, opts=str(opts), counted=points,
+               depth_extrapolated=extrapolate_depth and cell.mode != "train"
+               and cfg.n_periods > 2)
 
     # ---- memory --------------------------------------------------------
     m = {k: int(ev[k]) for k in ("argument_size_in_bytes", "output_size_in_bytes",
@@ -252,7 +322,7 @@ def run_cell(arch, shape: str, mesh: str = "none", opts_kw=None, probes: bool = 
     # ---- probe-corrected roofline ---------------------------------------
     if probes:
         mbv = ev["microbatch"]
-        pr = probe_costs(cfg, shape, None, opts_kw or {}, mbv)
+        pr = probe_costs(cfg, shape, on, opts_kw or {}, mbv)
         rec["probe"] = pr
         terms = R.roofline_terms(pr["flops"], pr["bytes_accessed"], pr["wire_bytes"])
         terms["model_vs_hlo_flops"] = rec["model_flops_global"] / max(
@@ -261,13 +331,12 @@ def run_cell(arch, shape: str, mesh: str = "none", opts_kw=None, probes: bool = 
         # kernel-corrected memory term: the direct attention's score tensors,
         # which the flash kernel keeps on chip
         scores = R.attn_scores_traffic(
-            cfg, cell.mode, cellspec.global_batch, cellspec.seq_len, rec["devices"], tp=TP,
+            cfg, cell.mode, cellspec.global_batch, cellspec.seq_len, devices, tp=tp,
         )
         terms["attn_scores_bytes"] = scores
         terms["memory_kernel_s"] = max(pr["bytes_accessed"] - scores, 0.0) / R.HW["hbm_bw"]
         floor = R.analytic_memory_floor(
-            cfg, cell.mode, cellspec.global_batch, cellspec.seq_len, rec["devices"], mbv,
-            tp=TP,
+            cfg, cell.mode, cellspec.global_batch, cellspec.seq_len, devices, mbv, tp=tp,
         )
         terms["memory_floor_bytes"] = floor
         terms["memory_floor_s"] = floor / R.HW["hbm_bw"]
@@ -293,10 +362,12 @@ def main(argv=None) -> int:
     ap.add_argument("--mamba-tp", type=int, default=1)
     ap.add_argument("--probes", action="store_true",
                     help="add the probe cells' cost accounting")
+    ap.add_argument("--extrapolate-depth", action="store_true",
+                    help="count prefill and decode cells at 1 and 2 periods and extrapolate")
     ap.add_argument("--tag", default="")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        raise unported(f"the dry run on --mesh {args.mesh}", 11)
+    # DTensor warns at every gather of a leaf split over two mesh dims
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
 
     os.makedirs(args.out_dir, exist_ok=True)
     cells = []
@@ -318,26 +389,28 @@ def main(argv=None) -> int:
     failures = 0
     t_all = time.time()
     for arch, shape in cells:
-        tag = f"__{args.tag}" if args.tag else ""
-        name = f"{arch}__{shape}__{args.mesh}{tag}.json"
-        path = os.path.join(args.out_dir, name)
-        if args.skip_existing and os.path.exists(path):
-            print(f"[dryrun] skip (exists): {name}")
-            continue
-        print(f"[dryrun] {arch} × {shape} × {args.mesh} ...", flush=True)
-        try:
-            rec = run_cell(arch, shape, args.mesh, opts_kw, probes=args.probes)
-        except Exception as e:  # one cell's failure is recorded, the sweep goes on
-            rec = {"arch": arch, "shape": shape, "mesh": args.mesh, "status": "error",
-                   "error": repr(e), "traceback": traceback.format_exc()}
-            failures += 1
-        with open(path, "w") as f:
-            json.dump(rec, f, indent=2)
-        extra = ""
-        if rec["status"] == "ok":
-            extra = (f" lower={rec['lower_s']}s compile={rec['compile_s']}s "
-                     f"live={rec['memory']['live_bytes_per_device'] / 2**30:.2f}GiB")
-        print(f"[dryrun]   -> {rec['status']}{extra}", flush=True)
+        for mesh in MESHES[args.mesh]:
+            tag = f"__{args.tag}" if args.tag else ""
+            name = f"{arch}__{shape}__{mesh}{tag}.json"
+            path = os.path.join(args.out_dir, name)
+            if args.skip_existing and os.path.exists(path):
+                print(f"[dryrun] skip (exists): {name}")
+                continue
+            print(f"[dryrun] {arch} × {shape} × {mesh} ...", flush=True)
+            try:  # probes on one device and the single pod only, as JAX's
+                rec = run_cell(arch, shape, mesh, opts_kw, probes=args.probes and mesh != "multi",
+                               extrapolate_depth=args.extrapolate_depth)
+            except Exception as e:  # one cell's failure is recorded, the sweep goes on
+                rec = {"arch": arch, "shape": shape, "mesh": mesh, "status": "error",
+                       "error": repr(e), "traceback": traceback.format_exc()}
+                failures += 1
+            with open(path, "w") as f:
+                json.dump(rec, f, indent=2)
+            extra = ""
+            if rec["status"] == "ok":
+                extra = (f" lower={rec['lower_s']}s compile={rec['compile_s']}s "
+                         f"live={rec['memory']['live_bytes_per_device'] / 2**30:.2f}GiB")
+            print(f"[dryrun]   -> {rec['status']}{extra}", flush=True)
     print(f"[dryrun] {len(cells)} cells in {time.time() - t_all:.1f} s", flush=True)
     return 1 if failures else 0
 

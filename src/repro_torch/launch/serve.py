@@ -19,6 +19,15 @@ Usage (on a CUDA card; ``--device cpu`` runs the plain versions):
   python -m repro_torch.launch.serve --arch minicpm3-4b --full --prompt-len 1024 --max-new 32
 A monitor built with ``ChimbukoMonitor(viz_serve=PORT)`` and passed as
 ``monitor=`` serves the run live (HTTP views, ``/trace``, WebSocket frames).
+
+On a mesh (``mesh=``, a ``DeviceMesh`` over the open process group; every
+rank calls ``serve`` alike) the weights are placed across the ranks
+(``launch.sharding.placed_compute_params``, built leaf by leaf, so no rank
+holds the whole model) and gathered a layer at a time, the experts kept
+split (expert parallelism over the model axis), and the caches hold each
+rank's blocks (``cache_shardings``: attention by sequence, Mamba's state
+by d_inner channels); the next tokens of a batch split over the batch
+axes are gathered, so every rank feeds the global batch.
 """
 from __future__ import annotations
 
@@ -31,12 +40,16 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from torch.distributed.tensor import DTensor
+
 from .. import configs
+from .. import tree as T
 from ..device import resolve
 from ..models import model as M
-from ..models.common import init_params
+from ..models.common import ModelConfig, init_params
 from ..trace.monitor import ChimbukoMonitor
 from ..trace.tracer import Tracer
+from .sharding import placed_compute_params
 from .steps import StepOptions, build_decode_step, build_prefill_step, make_shard_ctx
 
 
@@ -61,25 +74,32 @@ def serve(
     *,
     params=None,
     device=None,
+    mesh=None,
+    config: Optional[ModelConfig] = None,
 ) -> Dict:
     """Serve ``n_requests`` random prompts in waves of ``batch``.
 
     ``device=None`` is the port's default device (``cuda:0``; raises
     without CUDA).  ``params`` (float32 master weights on ``device``, e.g.
-    carried from JAX by ``convert.params_from_jax``) replaces the port's own
-    ``init_params(seed)``.
+    carried from JAX by ``convert.params_from_jax``, or compute weights, on
+    a mesh placed ones) replaces the port's own ``init_params(seed)``, on
+    ``mesh`` ``placed_compute_params(seed)``.  ``config`` replaces
+    ``arch``'s config (a cut one).
     """
     device = resolve(device)
-    cfg = configs.smoke(arch) if smoke else configs.get_config(arch)
+    cfg = config or (configs.smoke(arch) if smoke else configs.get_config(arch))
     assert not cfg.is_encoder, "decode serving needs a decoder arch"
     opts = StepOptions()
-    ctx = make_shard_ctx(cfg, None, batch, opts)
+    ctx = make_shard_ctx(cfg, mesh, batch, opts)
     max_seq = prompt_len + max_new
     if params is None:
-        params = init_params(cfg, seed, device)
+        params = init_params(cfg, seed, device) if mesh is None else \
+            placed_compute_params(cfg, seed, mesh, device=device)
     # Cast once; every step then computes with the same values JAX's per-call
     # casts give (see M.compute_params).
     params = M.compute_params(cfg, params)
+    if mesh is not None and not any(isinstance(t, DTensor) for t in T.leaves(params)):
+        params = M.local_params(cfg, params, ctx)  # whole weights: the rank's experts
     prefill_fn = build_prefill_step(cfg, ctx, opts, max_seq=max_seq)
     decode_fn = build_decode_step(cfg, ctx, opts)  # updates the cache in place
 
@@ -106,7 +126,7 @@ def serve(
                 pad = np.tile(prompts[-1:], (batch - len(wave), 1))
                 prompts = np.concatenate([prompts, pad])
             logits, cache = prefill_fn(params, {"tokens": torch.from_numpy(prompts).to(device)})
-            next_tok = torch.argmax(logits[:, -1], dim=-1)
+            next_tok = _global_rows(ctx, torch.argmax(logits[:, -1], dim=-1), batch)
         for t in range(max_new):
             t0 = time.perf_counter()
             with tracer.span("serve/decode_step"):
@@ -116,7 +136,7 @@ def serve(
                     r.out.append(toks[i])
                 tokens_out += len(wave)
                 logits, cache = decode_fn(params, cache, next_tok[:, None].to(torch.int32))
-                next_tok = torch.argmax(logits[:, 0], dim=-1)
+                next_tok = _global_rows(ctx, torch.argmax(logits[:, 0], dim=-1), batch)
             monitor.record_step_times(step, {0: time.perf_counter() - t0})
             step += 1
         finished.extend(wave)
@@ -132,6 +152,16 @@ def serve(
     if own_monitor:
         monitor.close()
     return out
+
+
+def _global_rows(ctx, t: torch.Tensor, batch: int) -> torch.Tensor:
+    """A per-row tensor of a global batch of ``batch`` whose rank holds its
+    rows, whole: gathered over the batch axes where the mesh splits them."""
+    if ctx.mesh is None or not ctx.for_pass(batch, 1).batch_split:
+        return t
+    for axis in reversed(ctx.batch_axes):
+        t = torch.cat(ctx.all_gather(t, axis), dim=0)
+    return t
 
 
 def main():

@@ -16,8 +16,9 @@ tuple of axes ``Shard(i)`` on each of them in the tuple's order, every
 other mesh dim ``Replicate()``).  ``param_shardings`` and
 ``batch_shardings`` give one per leaf, and :func:`place` turns a tree that
 every rank holds whole into DTensors of each rank's own blocks, with no
-collective.  ``cache_shardings`` (Mamba's decode state split over d_inner)
-waits for ROADMAP.md item 11.
+collective.  ``cache_shardings`` gives the decode cache's (Mamba's state
+split over d_inner), and :func:`placed_compute_params` builds a rank's
+placed serving weights leaf by leaf.
 """
 from __future__ import annotations
 
@@ -28,8 +29,8 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from .. import tree as T
-from .._unported import unported
-from ..models.common import ModelConfig
+from ..models.common import ModelConfig, init_leaves, param_shapes
+from ..models.model import compute_leaf
 from .mesh import batch_axes as mesh_batch_axes, batch_shards, tp_size
 
 Spec = Tuple
@@ -286,4 +287,48 @@ def batch_shardings(cfg: ModelConfig, spec, mesh):
 
 
 def cache_shardings(cfg: ModelConfig, cache_tree, mesh):
-    raise unported("cache_shardings (DTensor placements)", 11)
+    """Tree of :class:`Sharding` matching a decode cache (``init_cache``'s
+    tree of tensors or shape tuples) by :func:`cache_pspec`, which reads
+    the leaf's dict keys; a host int (``pos``, ``max_seq``) None: every
+    rank holds it.  The port's meshed cache holds each rank's blocks of it
+    as plain tensors (``models.model.init_cache`` and ``prefill`` on a
+    mesh)."""
+
+    def walk(tree, keys):
+        if isinstance(tree, dict):
+            return {k: walk(v, keys + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, keys) for v in tree]
+        if isinstance(tree, int):
+            return None
+        return Sharding(mesh, cache_pspec(list(keys), _shape(tree), cfg, mesh))
+
+    return walk(cache_tree, ())
+
+
+def placed_compute_params(cfg: ModelConfig, seed: int, mesh=None, fsdp: bool = True,
+                          mamba_tp: bool = True, device=None):
+    """The serving weights ``compute_params(cfg, init_params(cfg, seed,
+    device))`` placed by :func:`param_shardings` on ``mesh`` (None: whole),
+    built leaf by leaf: each leaf drawn whole in ``init_params``'s order,
+    cast, cut to the rank's block and freed before the next, so a rank
+    holds its blocks and one whole float32 leaf at most (jamba-v0.1-52b's
+    stacked experts, 15 GB), never the float32 tree.  Its blocks equal
+    :func:`local_block` of the whole tree's, bitwise, on one device type."""
+    shardings = None if mesh is None else param_shardings(cfg, param_shapes(cfg), mesh, fsdp,
+                                                          mamba_tp)
+    top: dict = {}
+    layers: list = [{} for _ in cfg.layout]
+    for path, leaf in init_leaves(cfg, seed, device):
+        t = compute_leaf(cfg, path[-1], leaf)
+        del leaf
+        if shardings is not None:
+            sharding = shardings[path[0]] if len(path) == 1 else \
+                shardings["layers"][path[1]][path[2]]
+            t = DTensor.from_local(local_block(t, sharding), sharding.mesh, sharding.placements,
+                                   run_check=False)
+        if len(path) == 1:
+            top[path[0]] = t
+        else:
+            layers[path[1]][path[2]] = t
+    return {**top, "layers": layers}

@@ -16,8 +16,9 @@ and expert parallelism over its model axis (``models.model.ShardCtx``),
 and the train step runs there on a state placed by
 :func:`train_state_shardings` (``launch.sharding.place``): every rank
 passes the global batch, computes its block, and updates its own blocks
-of the state.  Cells on a mesh (the dry run's) wait for ROADMAP.md queue
-1, item 11.
+of the state.  A cell on a mesh (the dry run's) holds one rank's
+arguments: its blocks of the placed state or weights, of the batch and of
+the cache.
 """
 from __future__ import annotations
 
@@ -28,8 +29,9 @@ import torch
 import torch.distributed as dist
 
 from .. import configs
+from torch.distributed.tensor import DTensor
+
 from .. import tree as T
-from .._unported import unported
 from ..data.pipeline import batch_spec as data_batch_spec
 from ..models import model as M
 from ..models.common import ModelConfig, init_params, param_shapes
@@ -94,6 +96,16 @@ def _split(name: str, x: torch.Tensor, nm: int) -> torch.Tensor:
     return x.reshape((nm, x.shape[0] // nm) + tuple(x.shape[1:]))
 
 
+def _microbatch(name: str, x: torch.Tensor, nm: int, i: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``nm`` of a batch leaf.  A leaf placed by
+    ``batch_shardings`` (a DTensor: the rank's rows) is split as its own
+    rows, each part placed alike."""
+    if isinstance(x, DTensor):
+        return DTensor.from_local(_split(name, x.to_local(), nm)[i], x.device_mesh, x.placements,
+                                  run_check=False)
+    return _split(name, x, nm)[i]
+
+
 def build_grad_step(
     cfg: ModelConfig, ctx: ShardCtx, opts: StepOptions, microbatch: Optional[int] = None
 ) -> Callable:
@@ -116,11 +128,11 @@ def build_grad_step(
     def grad_step(params, batch):
         if nm <= 1:
             return loss_and_grads(params, batch)
-        mb = {k: _split(k, v, nm) for k, v in batch.items()}
         gsum = [torch.zeros_like(p, dtype=torch.float32) for p in T.leaves(params)]
         lsum = torch.zeros((), dtype=torch.float32, device=gsum[0].device)
         for i in range(nm):  # summed in microbatch order, as lax.scan
-            metrics, grads = loss_and_grads(params, {k: v[i] for k, v in mb.items()})
+            metrics, grads = loss_and_grads(
+                params, {k: _microbatch(k, v, nm, i) for k, v in batch.items()})
             for acc, g in zip(gsum, T.leaves(grads)):
                 acc.add_(g)
             lsum = lsum + metrics["loss"]
@@ -317,9 +329,16 @@ def make_cell(arch, shape: str, mesh=None, opts: StepOptions = StepOptions(), *,
     cells take the float32 masters and cast them inside the step.
     ``batch`` overrides the shape's global batch (the dry run counts a few
     microbatches of a train cell and extrapolates).
+
+    On ``mesh`` (JAX's ``make_cell`` on a mesh, ``repro/launch/steps.py:260``)
+    the arguments are the rank's: the train state placed by
+    :func:`train_state_shardings` (``step`` whole), the batch by
+    ``batch_shardings`` (DTensors of the rank's rows), the microbatch count
+    ``auto_microbatch(cfg, B, S, dp)``; prefill and decode the compute
+    weights placed by ``param_shardings``, decode the rank's cache blocks
+    (``init_cache`` on the mesh: ``cache_shardings``' blocks) and the
+    tokens placed as the batch.
     """
-    if mesh is not None:
-        raise unported("make_cell(mesh=...) (the dry run on a mesh)", 11)
     cfg = configs.get_config(arch) if isinstance(arch, str) else arch
     cell = configs.SHAPES[shape]
     B, S = cell.global_batch if batch is None else batch, cell.seq_len
@@ -327,19 +346,33 @@ def make_cell(arch, shape: str, mesh=None, opts: StepOptions = StepOptions(), *,
     if opts.probe:
         opts = dataclasses.replace(opts, ce_chunk=S)
 
+    def placed(tree, shardings):
+        return tree if mesh is None else SH.place(tree, shardings)
+
+    def weights():
+        params = M.compute_params(cfg, meta_params(cfg))
+        return placed(params, mesh and SH.param_shardings(cfg, params, mesh, opts.fsdp,
+                                                          opts.mamba_tp))
+
+    def batch_of(spec):
+        return placed(spec, mesh and SH.batch_shardings(cfg, spec, mesh))
+
     if cell.mode == "train":
-        mb = opts.microbatch or auto_microbatch(cfg, B, S, 1)
+        dp = 1 if mesh is None else batch_shards(mesh)
+        mb = opts.microbatch or auto_microbatch(cfg, B, S, dp)
         fn = build_train_step(cfg, ctx, opts, microbatch=mb)
-        args = (meta_train_state(cfg, opts.master_in_opt), data_batch_spec(cfg, B, S))
+        state = meta_train_state(cfg, opts.master_in_opt)
+        state = placed(state, mesh and train_state_shardings(cfg, state, mesh, opts))
+        args = (state, batch_of(data_batch_spec(cfg, B, S)))
     elif cell.mode == "prefill":
         fn = build_prefill_step(cfg, ctx, opts)
-        batch = data_batch_spec(cfg, B, S)
-        batch.pop("labels", None)
-        args = (M.compute_params(cfg, meta_params(cfg)), batch)
+        spec = data_batch_spec(cfg, B, S)
+        spec.pop("labels", None)
+        args = (weights(), batch_of(spec))
     else:  # decode
         fn = build_decode_step(cfg, ctx, opts)
-        args = (M.compute_params(cfg, meta_params(cfg)), M.init_cache(cfg, B, S, device="meta"),
-                torch.empty((B, 1), dtype=torch.int32, device="meta"))
+        tokens = batch_of({"tokens": torch.empty((B, 1), dtype=torch.int32, device="meta")})
+        args = (weights(), M.init_cache(cfg, B, S, device="meta", ctx=ctx), tokens["tokens"])
     return Cell(cfg, shape, cell.mode, fn, args)
 
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -284,6 +284,26 @@ def _init_leaf(gen: torch.Generator, kind: str, shape, dtype, device) -> torch.T
     raise ValueError(f"unknown init kind {kind!r}")
 
 
+def init_leaves(cfg: ModelConfig, seed: int = 0, device=None):
+    """:func:`init_params`'s leaves one at a time, in its draw order, as
+    (path, tensor): path ``("embed",)``, ``("final_ln",)``, ``("unembed",)``
+    or ``("layers", position, name)``.  A caller that keeps only part of
+    each leaf never holds the whole tree."""
+    device = resolve(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = cfg.param_dtype
+    # 1/sqrt(d) keeps tied-unembed logits O(1) at init (emb_scale archs
+    # multiply hidden states back up by sqrt(d)).
+    yield ("embed",), _dense_init(gen, (cfg.vocab_padded, cfg.d_model), dt, device,
+                                  scale=1.0 / math.sqrt(cfg.d_model))
+    yield ("final_ln",), torch.ones((cfg.d_model,), dtype=dt, device=device)
+    if not cfg.tie_embeddings:
+        yield ("unembed",), _dense_init(gen, (cfg.d_model, cfg.vocab_padded), dt, device)
+    for i, spec in enumerate(cfg.layout):
+        for name, (shape, kind) in layer_param_shapes(cfg, spec).items():
+            yield ("layers", i, name), _init_leaf(gen, kind, (cfg.n_periods, *shape), dt, device)
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     """Full parameter tree from ``seed``, drawn on ``device``.
 
@@ -291,21 +311,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     without CUDA).  The same seed gives the same tensors on one device
     type; CPU and CUDA generators differ.
     """
-    device = resolve(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    dt = cfg.param_dtype
-    params: Dict[str, Any] = {
-        # 1/sqrt(d) keeps tied-unembed logits O(1) at init (emb_scale archs
-        # multiply hidden states back up by sqrt(d)).
-        "embed": _dense_init(gen, (cfg.vocab_padded, cfg.d_model), dt, device,
-                             scale=1.0 / math.sqrt(cfg.d_model)),
-        "final_ln": torch.ones((cfg.d_model,), dtype=dt, device=device),
-    }
-    if not cfg.tie_embeddings:
-        params["unembed"] = _dense_init(gen, (cfg.d_model, cfg.vocab_padded), dt, device)
-    params["layers"] = [
-        {name: _init_leaf(gen, kind, (cfg.n_periods, *shape), dt, device)
-         for name, (shape, kind) in layer_param_shapes(cfg, spec).items()}
-        for spec in cfg.layout
-    ]
+    params: Dict[str, Any] = {}
+    layers: List[Dict[str, Any]] = [{} for _ in cfg.layout]
+    for path, leaf in init_leaves(cfg, seed, device):
+        if path[0] == "layers":
+            layers[path[1]][path[2]] = leaf
+        else:
+            params[path[0]] = leaf
+    params["layers"] = layers
     return params

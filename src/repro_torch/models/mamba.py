@@ -13,7 +13,8 @@ Two sequence paths, as in the JAX package:
     and the scan a second time (``model._mamba_prefill_state``).
 
 Decode is the O(1) single-step state update, ``mamba_decode``, with the
-cache updated in place.  ``mamba_mixer_seq_parallel`` runs the forward and
+cache updated in place; ``mamba_decode_tp`` runs it tensor-parallel over a
+mesh's model axis on a state split over d_inner.  ``mamba_mixer_seq_parallel`` runs the forward and
 prefill of a sequence sharded over a mesh's model axis: local pieces
 (:func:`seq_shard_scan`, :func:`prefix_state`, :func:`seq_shard_output`)
 around two all-gathers.
@@ -25,7 +26,6 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..device import resolve
 from ..kernels import ops
 from . import layers as L
 from .common import ModelConfig
@@ -335,12 +335,65 @@ def mamba_decode(
     return out, state
 
 
-def init_mamba_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
-                     device=None) -> Dict[str, torch.Tensor]:
-    device = resolve(device)
-    return {
-        "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_d_state), dtype=torch.float32,
-                         device=device),
-        "conv": torch.zeros((batch, cfg.ssm_d_conv - 1, cfg.d_inner), dtype=dtype,
-                            device=device),
-    }
+def channel_block(cfg: ModelConfig, rank: int, tp: int) -> slice:
+    """Model rank ``rank``'s d_inner channels of ``tp``: its block of the
+    decode state as ``cache_pspec`` splits it."""
+    n = cfg.d_inner // tp
+    return slice(rank * n, (rank + 1) * n)
+
+
+def mamba_decode_tp_in(p: Dict[str, torch.Tensor], u: torch.Tensor, state: Dict[str, torch.Tensor],
+                       cfg: ModelConfig, rank: int, tp: int):
+    """The tensor-parallel decode's first part on model rank ``rank`` of
+    ``tp``, whose state block (``h`` (B, di/tp, st), ``conv`` (B, K−1,
+    di/tp)) holds its channels (:func:`channel_block`): its x and z
+    channels of ``in_proj`` (columns c and di + c: ``in_proj``'s placement
+    splits the 2·di columns, not x and z alike), the conv on them, and its
+    partial product with ``x_proj``'s rows, which the ranks sum.  ``p``
+    holds whole weights.  -> (x, z, conv_in, the partial of x @ x_proj
+    (B, dr+2st) taken in float32: summed over the ranks and rounded once,
+    as one device's GEMM accumulates and rounds once)."""
+    c = channel_block(cfg, rank, tp)
+    di = cfg.d_inner
+    w = p["in_proj"]
+    x, z = u[:, 0] @ w[:, c], u[:, 0] @ w[:, di + c.start:di + c.stop]
+    conv_in = torch.cat([state["conv"], x[:, None]], dim=1)  # (B,K,di/tp)
+    x = L.silu(torch.einsum("bkd,kd->bd", conv_in, p["conv_w"][:, c]) + p["conv_b"][c])
+    return x, z, conv_in, x.float() @ p["x_proj"][c].float()
+
+
+def mamba_decode_tp_out(p: Dict[str, torch.Tensor], x, z, conv_in, dbl: torch.Tensor,
+                        state: Dict[str, torch.Tensor], cfg: ModelConfig, rank: int,
+                        tp: int) -> torch.Tensor:
+    """The second part, once ``dbl`` is the ranks' sum (in x's dtype): Δt
+    of the rank's channels (``dt_proj``'s columns, ``dt_bias``), the state
+    update of its block in place, and its partial output through its rows
+    of ``out_proj``, float32 (B, d_model), which the ranks sum."""
+    c = channel_block(cfg, rank, tp)
+    dr, st = cfg.dt_rank, cfg.ssm_d_state
+    dt, Bm, Cm = torch.split(dbl, [dr, st, st], dim=-1)
+    dt = L.softplus(dt @ p["dt_proj"][:, c] + p["dt_bias"][c])  # (B,di/tp)
+    A = -torch.exp(p["A_log"][c].float())
+    a = torch.exp(dt.float()[..., None] * A)
+    b = (dt * x).float()[..., None] * Bm.float()[:, None, :]
+    h = a * state["h"] + b
+    y = torch.einsum("bds,bs->bd", h, Cm.float())
+    y = (y.to(x.dtype) + x * p["D"][c]) * L.silu(z)
+    state["h"].copy_(h)
+    state["conv"].copy_(conv_in[:, 1:])
+    return y.float() @ p["out_proj"][c].float()
+
+
+def mamba_decode_tp(p: Dict[str, torch.Tensor], u: torch.Tensor, state: Dict[str, torch.Tensor],
+                    cfg: ModelConfig, rank: int, tp: int, psum: Callable) -> torch.Tensor:
+    """Tensor-parallel single-token Mamba over the model axis (XLA's
+    partition of JAX's ``mamba_decode`` when the state is split over
+    d_inner): each rank updates its channels' state in place, and two
+    sums over the ranks (``psum``: the model axis's all-reduce) complete
+    x @ x_proj and the output projection; the partials are taken and
+    summed in float32 and rounded once.  ``p`` holds whole weights (gathered placed
+    ones).  -> (B, 1, d_model) in u's dtype."""
+    x, z, conv_in, dbl = mamba_decode_tp_in(p, u, state, cfg, rank, tp)
+    dbl = psum(dbl).to(u.dtype)
+    out = mamba_decode_tp_out(p, x, z, conv_in, dbl, state, cfg, rank, tp)
+    return psum(out).to(u.dtype)[:, None]

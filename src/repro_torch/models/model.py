@@ -32,7 +32,11 @@ Differences of form, not of values, from the JAX package:
 On a mesh (:class:`ShardCtx`) :func:`loss_and_metrics` also takes the
 placed train state of ``launch.sharding.place``: DTensor leaves, each
 gathered where it is used (:func:`collectives.gathered`) and its gradient
-reduced back to its placement by the gather's backward.
+reduced back to its placement by the gather's backward.  :func:`prefill`
+and :func:`decode_step` take placed compute weights alike
+(``launch.sharding.placed_compute_params``), gathered one layer at a time,
+and a batch leaf placed by ``launch.sharding.batch_shardings`` (a DTensor)
+is taken as the rank's rows.
 """
 from __future__ import annotations
 
@@ -66,11 +70,13 @@ class ShardCtx:
     (B/dp, S, D), the sequence replicated over the model axis; parameters
     are replicated except the expert leaves, of which rank r of the model
     axis holds experts [r·E/tp, (r+1)·E/tp) where :meth:`ep_info` applies
-    (:func:`local_params`); the attention caches are split by
-    ``launch.sharding.cache_pspec``'s rule (batch over the batch axes,
-    sequence over the model axis) and Mamba's states over the batch axes
-    only.  The collectives are ``torch.distributed`` calls on the mesh's
-    groups (``mesh.get_group(name)``): an all-gather into a list and
+    (:func:`local_params`), or placed and gathered at use; the caches are
+    split by ``launch.sharding.cache_pspec``'s rule (batch over the batch
+    axes; the attention caches' sequence and Mamba's d_inner channels over
+    the model axis, the decode step then running Mamba tensor-parallel:
+    :func:`mamba.mamba_decode_tp`).  The collectives are
+    ``torch.distributed`` calls on the mesh's groups
+    (``mesh.get_group(name)``): an all-gather into a list and
     all-reduces (sum, max), which gloo and NCCL both take.  Where a
     gradient is taken the gather and the sum carry autograd
     (:mod:`collectives`: their backwards are a reduce-scatter and an
@@ -218,13 +224,36 @@ def _use_seq_parallel(ctx: ShardCtx, S: int) -> bool:
 
 
 def _seq_sharded(ctx: ShardCtx, Sc: int) -> bool:
-    """Is a decode cache of Sc slots sequence-sharded over the model axis?"""
+    """Does the model axis split a cache dim of Sc entries (an attention
+    cache's slots, Mamba's d_inner channels)?  ``cache_pspec``'s rule."""
     return (
         ctx.mesh is not None
         and ctx.model_axis in _dim_names(ctx.mesh)
         and Sc % ctx.tp == 0
         and Sc >= ctx.tp
     )
+
+
+def _state_split(cfg: ModelConfig, ctx: ShardCtx) -> bool:
+    """Is Mamba's decode state split over d_inner across more than one
+    model rank (the tensor-parallel decode)?"""
+    return ctx.mesh is not None and ctx.tp > 1 and _seq_sharded(ctx, cfg.d_inner)
+
+
+def _rank_rows(ctx: ShardCtx, name: str, v: torch.Tensor, B: int) -> torch.Tensor:
+    """The rank's rows of a batch leaf of global batch B: a leaf placed by
+    ``batch_shardings`` (a DTensor) holds them as its local block; else
+    they are cut from the global batch (``pos3`` on its axis 1)."""
+    if isinstance(v, DTensor):
+        return v.to_local()
+    rows = ctx.batch_rows(B)
+    return v[:, rows] if name == "pos3" else v[rows]
+
+
+def _gathered_top(params) -> Dict[str, torch.Tensor]:
+    """The embedding, final norm and unembedding: placed leaves gathered
+    whole, compute weights as given."""
+    return {k: C.gathered(v) for k, v in params.items() if k != "layers"}
 
 
 def local_params(cfg: ModelConfig, params, ctx: ShardCtx) -> Dict[str, Any]:
@@ -244,7 +273,7 @@ def local_params(cfg: ModelConfig, params, ctx: ShardCtx) -> Dict[str, Any]:
 # ---------------------------------------------------------------- embedding
 def embed_tokens(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     _check_compute(cfg, params)
-    return _embed(cfg, params["embed"], batch)
+    return _embed(cfg, C.gathered(params["embed"]), batch)
 
 
 def _check_compute(cfg: ModelConfig, params) -> None:
@@ -293,6 +322,7 @@ def _rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor, dim: int):
 
 def unembed(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     """-> float32 logits over the padded vocab, padding columns at -1e30."""
+    params = _gathered_top(params)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = x @ params["embed"].T.to(cfg.compute_dtype)
@@ -309,11 +339,6 @@ def unembed(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 _F32_KEYS = frozenset({"A_log"})  # kept f32: used only inside f32 math
 
 
-def _cast_block_params(p: Dict[str, torch.Tensor], dtype) -> Dict[str, torch.Tensor]:
-    """Compute-dtype casts of the float32 master weights (mixed precision)."""
-    return {k: (v if k in _F32_KEYS else v.to(dtype)) for k, v in p.items()}
-
-
 def compute_params(cfg: ModelConfig, params) -> Dict[str, Any]:
     """The weights forward, prefill and decode_step compute with, cast once.
 
@@ -325,22 +350,28 @@ def compute_params(cfg: ModelConfig, params) -> Dict[str, Any]:
     same values every call would have computed; the entry points then cast
     nothing.  ``final_ln`` stays float32 as JAX reads it (``rms_norm``
     widens its weight to float32 either way, but a bf16 round trip would
-    change it).
+    change it).  A placed tree's leaves are cast block by block.
     """
-    dt = cfg.compute_dtype
-    out = {
-        "embed": params["embed"].to(dt),
-        "final_ln": params["final_ln"],
-        "layers": [_cast_block_params(p, dt) for p in params["layers"]],
-    }
-    if "unembed" in params:
-        out["unembed"] = params["unembed"].to(dt)
+    out = {k: compute_leaf(cfg, k, v) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: compute_leaf(cfg, k, v) for k, v in p.items()} for p in params["layers"]]
     return out
 
 
-def _layer(params, pos: int, period: int) -> Dict[str, torch.Tensor]:
-    """One layer's weights: the ``period`` slice of layout position ``pos``."""
-    return {k: v[period] for k, v in params["layers"][pos].items()}
+def compute_leaf(cfg: ModelConfig, key: str, t: torch.Tensor) -> torch.Tensor:
+    """One leaf (named ``key``) as :func:`compute_params` casts it."""
+    return t if key in _F32_KEYS or key == "final_ln" else t.to(cfg.compute_dtype)
+
+
+def _serving_layers(cfg: ModelConfig, params, ctx: ShardCtx):
+    """(period, layout position, spec, weights) of every layer in order,
+    as prefill and decode compute with them: a placed layer's leaves
+    gathered when its turn comes (:func:`_block_params`), so one layer's
+    whole weights are live at a time; compute weights as given."""
+    for period, layers in enumerate(_unstacked(params)):
+        for i, (spec, p) in enumerate(zip(cfg.layout, layers)):
+            if any(isinstance(v, DTensor) for v in p.values()):
+                p = _block_params(cfg, spec, p, ctx)
+            yield period, i, spec, p
 
 
 def _qkv(cfg, p, h, cos, sin):
@@ -604,8 +635,7 @@ def _inputs(cfg: ModelConfig, table: torch.Tensor, batch, ctx: ShardCtx):
     ctx = ctx.for_pass(B, S)
     off, S_loc = 0, S
     if ctx.mesh is not None:
-        rows = ctx.batch_rows(B)
-        batch = {k: (v[:, rows] if k == "pos3" else v[rows]) for k, v in batch.items()}
+        batch = {k: _rank_rows(ctx, k, v, B) for k, v in batch.items()}
         if ctx.seq_shard:
             S_loc = S // ctx.tp
             off = ctx.model_rank * S_loc
@@ -703,7 +733,7 @@ def _local_labels(ctx: ShardCtx, labels: torch.Tensor) -> torch.Tensor:
     """The labels of the rank's tokens, cut as :func:`_inputs` cuts the batch."""
     if ctx.mesh is None:
         return labels
-    labels = labels[ctx.batch_rows(labels.shape[0])]
+    labels = _rank_rows(ctx, "labels", labels, labels.shape[0])
     if ctx.seq_shard:
         n = labels.shape[1] // ctx.tp
         labels = labels[:, ctx.model_rank * n:(ctx.model_rank + 1) * n]
@@ -735,7 +765,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
     """Zeroed decode cache, stacked over periods per layout position;
     ``device=None`` is the port's default device.  On a mesh only the
     rank's blocks of a global batch of ``batch`` (:func:`_cache_block`'s
-    rule), and ``max_seq``, which decode reads."""
+    rule: Mamba's h and conv cut to the rank's d_inner channels too), and
+    ``max_seq``, which decode reads."""
     device = resolve(device)
     if ctx.mesh is not None:
         batch = len(range(batch)[ctx.for_pass(batch, 0).batch_rows(batch)])
@@ -747,8 +778,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
     per_pos: List[Dict[str, torch.Tensor]] = []
     for spec in cfg.layout:
         if spec.mixer == MAMBA:
-            state = MB.init_mamba_state(cfg, batch, dt, device)
-            per_pos.append({k: v.new_zeros((NP, *v.shape)) for k, v in state.items()})
+            di = slots(cfg.d_inner)
+            per_pos.append({
+                "h": torch.zeros((NP, batch, di, cfg.ssm_d_state), dtype=torch.float32,
+                                 device=device),
+                "conv": torch.zeros((NP, batch, cfg.ssm_d_conv - 1, di), dtype=dt, device=device),
+            })
             continue
         if spec.mixer == MLA:
             per_pos.append({
@@ -772,13 +807,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
 def _cache_block(ctx: ShardCtx, name: str, t: torch.Tensor) -> torch.Tensor:
     """A cache leaf stacked over periods, cut to the rank's block by
     ``cache_pspec``'s rule: the sequence of ``k``, ``v``, ``kpos``, ``ckv``
-    and ``krope`` over the model axis where it is sharded
-    (:func:`_seq_sharded`); Mamba's ``h`` and ``conv`` stay whole (their
-    d_inner split needs tensor parallelism).  A cut block is a copy, so
-    the whole leaf can be freed."""
-    dim = 1 if name == "kpos" else 2  # kpos (NP, Sc); the rest (NP, B, Sc, ...)
+    and ``krope`` and Mamba's d_inner channels of ``h`` and ``conv`` over
+    the model axis where it splits them (:func:`_seq_sharded`).  A cut
+    block is a copy, so the whole leaf can be freed."""
+    # kpos (NP, Sc); h (NP, B, di, st); conv (NP, B, K-1, di); the rest (NP, B, Sc, ...)
+    dim = {"kpos": 1, "conv": 3}.get(name, 2)
     n = t.shape[dim]
-    if name in ("h", "conv") or ctx.tp == 1 or not _seq_sharded(ctx, n):
+    if ctx.tp == 1 or not _seq_sharded(ctx, n):
         return t
     return t.narrow(dim, ctx.model_rank * n // ctx.tp, n // ctx.tp).clone()
 
@@ -907,11 +942,14 @@ def decode_block(cfg, spec, p, x, cache, pos: int, cos, sin, ctx: ShardCtx = Sha
     """One layer of a decode step; ``cache`` (this layer's slice) is
     updated in place.  On a mesh, attention runs the sharded decodes
     wherever the layer's cache is sequence-sharded (:func:`_seq_sharded`
-    of its global slots, from ``max_seq``)."""
+    of its global slots, from ``max_seq``), and Mamba the tensor-parallel
+    decode wherever its state is split over d_inner (:func:`_state_split`)."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     sharded = ctx.mesh is not None and spec.mixer != MAMBA and \
         _seq_sharded(ctx, _cache_len(cfg, spec, max_seq))
-    if spec.mixer == MAMBA:
+    if spec.mixer == MAMBA and _state_split(cfg, ctx):
+        h = MB.mamba_decode_tp(p, h, cache, cfg, ctx.model_rank, ctx.tp, ctx.psum)
+    elif spec.mixer == MAMBA:
         h, _ = MB.mamba_decode(p, h, cache, cfg)
     elif spec.mixer == MLA and sharded:
         q_eff, q_rope, ckv_new, krope_new = mla_decode_query(cfg, p, h, cos, sin)
@@ -934,8 +972,9 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
 
     The cache's tensors are updated in place and returned with ``pos``
     advanced; the cache passed in is not to be stepped again.  On a mesh
-    ``tokens`` is the global batch, the cache the rank's blocks
-    (:func:`init_cache`, :func:`prefill`), and the logits the rank's rows.
+    ``tokens`` is the global batch (or placed by ``batch_shardings``), the
+    cache the rank's blocks (:func:`init_cache`, :func:`prefill`), and the
+    logits the rank's rows; ``params`` may be placed.
     """
     pos = int(cache["pos"])
     max_seq = cache.get("max_seq")
@@ -944,20 +983,19 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
             raise ValueError("a decode step on a mesh takes the rank's cache blocks "
                              "(init_cache or prefill with the mesh's ShardCtx)")
         ctx = ctx.for_pass(tokens.shape[0], 1)
-        tokens = tokens[ctx.batch_rows(tokens.shape[0])]
-    x = embed_tokens(cfg, params, {"tokens": tokens})
+        tokens = _rank_rows(ctx, "tokens", tokens, tokens.shape[0])
+    top = _gathered_top(params)
+    x = embed_tokens(cfg, top, {"tokens": tokens})
     B = x.shape[0]
     # M-RoPE: t = h = w = pos, as JAX decodes, also after a prefill whose
     # pos3 continued the text from the visual grid's rows
     shape = (3, B, 1) if cfg.pos == "mrope" else (B, 1)
     positions = torch.full(shape, pos, dtype=torch.int32, device=x.device)
     cos, sin = _rope_cos_sin(cfg, positions, cfg.qk_dim)
-    for period in range(cfg.n_periods):
-        for i, spec in enumerate(cfg.layout):
-            c = {name: t[period] for name, t in cache["layers"][i].items()}
-            x = decode_block(cfg, spec, _layer(params, i, period), x, c, pos, cos, sin, ctx,
-                             max_seq)
-    logits = unembed(cfg, params, x)
+    for period, i, spec, p in _serving_layers(cfg, params, ctx):
+        c = {name: t[period] for name, t in cache["layers"][i].items()}
+        x = decode_block(cfg, spec, p, x, c, pos, cos, sin, ctx, max_seq)
+    logits = unembed(cfg, top, x)
     return logits, {**cache, "pos": pos + 1}
 
 
@@ -1003,53 +1041,53 @@ def prefill(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx(),
     ``ctx.unroll`` (the dry run) attention and the scan take their plain
     versions instead of the kernels.
 
-    On a mesh every rank passes the global batch and gets its rows of the
-    last position's logits and its cache blocks (:func:`_cache_block`),
-    each layer's cut as soon as it is built, so no rank holds the whole
-    cache.  Sequence-sharded, attention is the context-parallel body, its
-    cache built from the gathered K and V (MLA: the gathered latents), and
-    a Mamba layer the sequence-parallel mixer, whose prefix combine
-    carried one rank further gives the state.
+    On a mesh every rank passes the global batch (or its leaves placed by
+    ``batch_shardings``) and gets its rows of the last position's logits
+    and its cache blocks (:func:`_cache_block`), each layer's cut as soon
+    as it is built, so no rank holds the whole cache; placed weights are
+    gathered a layer at a time.  Sequence-sharded, attention is the
+    context-parallel body, its cache built from the gathered K and V (MLA:
+    the gathered latents), and a Mamba layer the sequence-parallel mixer,
+    whose prefix combine carried one rank further gives the state.
     """
     _check_compute(cfg, params)
-    x, cos, sin, ctx = _inputs(cfg, params["embed"], batch, ctx)
+    top = _gathered_top(params)
+    x, cos, sin, ctx = _inputs(cfg, top["embed"], batch, ctx)
     S = x.shape[1] * (ctx.tp if ctx.seq_shard else 1)
     per_pos: List[Dict[str, List[torch.Tensor]]] = [{} for _ in cfg.layout]
-    for period in range(cfg.n_periods):
-        for i, spec in enumerate(cfg.layout):
-            p = _layer(params, i, period)
-            h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-            if spec.mixer == MAMBA and ctx.seq_shard:
-                h, cch = MB.mamba_mixer_seq_parallel(
-                    p, h, cfg, ctx, chunk=ctx.mamba_chunk(S // ctx.tp), with_state=True)
-            elif spec.mixer == MAMBA:
-                h, cch = MB.mamba_prefill(p, h, cfg, chunk=None if ctx.kernels
-                                          else ctx.mamba_chunk(S))
-            elif spec.mixer == MLA:
-                h, (ckv, krope) = _mla_seq_with_cache(cfg, p, h, cos, sin, ctx)
-                cch = {"ckv": ckv, "krope": krope}
+    for _, i, spec, p in _serving_layers(cfg, params, ctx):
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        if spec.mixer == MAMBA and ctx.seq_shard:
+            h, cch = MB.mamba_mixer_seq_parallel(
+                p, h, cfg, ctx, chunk=ctx.mamba_chunk(S // ctx.tp), with_state=True)
+        elif spec.mixer == MAMBA:
+            h, cch = MB.mamba_prefill(p, h, cfg, chunk=None if ctx.kernels
+                                      else ctx.mamba_chunk(S))
+        elif spec.mixer == MLA:
+            h, (ckv, krope) = _mla_seq_with_cache(cfg, p, h, cos, sin, ctx)
+            cch = {"ckv": ckv, "krope": krope}
+        else:
+            h, (k, v) = _attn_seq_with_cache(cfg, spec, p, h, cos, sin, ctx)
+            if spec.mixer == SWA:
+                w = min(cfg.window, S)
+                k, v = k[:, -w:], v[:, -w:]
+                kpos = torch.arange(S - w, S, dtype=torch.int32, device=x.device)
             else:
-                h, (k, v) = _attn_seq_with_cache(cfg, spec, p, h, cos, sin, ctx)
-                if spec.mixer == SWA:
-                    w = min(cfg.window, S)
-                    k, v = k[:, -w:], v[:, -w:]
-                    kpos = torch.arange(S - w, S, dtype=torch.int32, device=x.device)
-                else:
-                    kpos = torch.arange(S, dtype=torch.int32, device=x.device)
-                cch = {"k": k, "v": v, "kpos": kpos}
-            x = _mixer_residual(cfg, x, h, p)
-            x = _mlp_residual(cfg, spec, p, x, ctx)
-            cch = {name: t[None] for name, t in cch.items()}  # a period axis of 1
-            if max_seq is not None and max_seq != S:
-                cch = _expand_layer_cache(cfg, spec, cch, S, max_seq)
-            for name, t in cch.items():
-                per_pos[i].setdefault(name, []).append(_cache_block(ctx, name, t)[0])
+                kpos = torch.arange(S, dtype=torch.int32, device=x.device)
+            cch = {"k": k, "v": v, "kpos": kpos}
+        x = _mixer_residual(cfg, x, h, p)
+        x = _mlp_residual(cfg, spec, p, x, ctx)
+        cch = {name: t[None] for name, t in cch.items()}  # a period axis of 1
+        if max_seq is not None and max_seq != S:
+            cch = _expand_layer_cache(cfg, spec, cch, S, max_seq)
+        for name, t in cch.items():
+            per_pos[i].setdefault(name, []).append(_cache_block(ctx, name, t)[0])
     # stacked a leaf at a time, each leaf's layers freed as it goes
     layer_caches = [{name: torch.stack(c.pop(name)) for name in list(c)} for c in per_pos]
     last = x[:, -1:]
     if ctx.seq_shard:  # the last position lives on the last model rank
         last = ctx.all_gather(last)[-1]
-    logits = unembed(cfg, params, last)
+    logits = unembed(cfg, top, last)
     cache = {"pos": S, "layers": layer_caches}
     if ctx.mesh is None:
         return logits, cache

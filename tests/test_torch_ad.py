@@ -149,7 +149,9 @@ assert "repro_torch.core.torch_ad" in names and "repro_torch.kernels.moments" in
 assert {"repro_torch.compat", "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
         "repro_torch.launch.mesh", "repro_torch.launch.sharding",
         "repro_torch.optim.compression", "repro_torch.models.collectives",
-        "repro_torch.checkpoint.ckpt"} <= set(names), names
+        "repro_torch.checkpoint.ckpt", "repro_torch.models.common", "repro_torch.models.model",
+        "repro_torch.launch.steps"} <= set(names), names
+assert "repro_torch._unported" not in names, names  # no part of the JAX package is left unported
 print("ISOLATED", len(names))
 """
 
@@ -201,7 +203,9 @@ def test_port_sources_import_no_jax_and_nothing_of_repro_at_any_depth():
             "repro_torch.launch.sharding", "repro_torch.optim.compression",
             "repro_torch.models.mamba", "repro_torch.launch.steps",
             "repro_torch.convert", "repro_torch.models.collectives",
-            "repro_torch.checkpoint.ckpt", "repro_torch.optim.adamw"} <= walked
+            "repro_torch.checkpoint.ckpt", "repro_torch.optim.adamw",
+            "repro_torch.models.common", "repro_torch.models.model"} <= walked
+    assert "repro_torch._unported" not in walked
     # the check sees nested imports: a function-level one is caught
     probe = REPO / "src" / "repro_torch" / "trace" / "monitor.py"
     assert "repro_torch.fault.health" in set(_imported_modules(probe))

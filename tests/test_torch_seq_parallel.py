@@ -473,12 +473,10 @@ class _Mesh:
 
 
 def _cache_spec(arch, mesh, key, shape):
-    """``cache_pspec``'s block spec; Mamba's states split over the batch
-    axes only (the d_inner split needs tensor parallelism)."""
+    """``cache_pspec``'s block spec, JAX's full rule."""
     from repro_torch import configs
 
-    spec = TSH.cache_pspec([key], shape, configs.smoke(arch), _Mesh(MESHES[mesh]))
-    return tuple(None if e == "model" and key in ("h", "conv") else e for e in spec)
+    return TSH.cache_pspec([key], shape, configs.smoke(arch), _Mesh(MESHES[mesh]))
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))

@@ -374,23 +374,6 @@ def test_probe_option_gives_the_probe_context():
     assert plain.kernels and plain.direct_threshold() == 1024 and plain.mamba_chunk(4096) == 128
 
 
-@pytest.mark.parametrize("call", ["dryrun_mesh_single", "dryrun_cli_multi", "cache_shardings",
-                                  "make_cell_on_a_mesh"])
-def test_placements_on_a_mesh_raise_item_11(call):
-    from repro_torch.launch import dryrun as TDR
-    from repro_torch.launch import sharding as TSH
-
-    cfg = tconfigs.smoke("gemma-2b")
-    calls = {
-        "dryrun_mesh_single": lambda: TDR.run_cell("gemma-2b", "train_4k", "single"),
-        "dryrun_cli_multi": lambda: TDR.main(["--all", "--mesh", "multi"]),
-        "cache_shardings": lambda: TSH.cache_shardings(cfg, {}, None),
-        "make_cell_on_a_mesh": lambda: TS.make_cell("gemma-2b", "train_4k", mesh=object()),
-    }
-    with pytest.raises(NotImplementedError, match="item 11"):
-        calls[call]()
-
-
 @pytest.mark.parametrize("arch", ["gemma-2b", "falcon-mamba-7b", "jamba-v0.1-52b"])
 def test_auto_microbatch_matches_jax(arch):
     for gb, seq, dp in ((256, 4096, 1), (8, 64, 1), (256, 4096, 16)):
