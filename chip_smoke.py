@@ -33,12 +33,16 @@ non-zero):
            and qwen2-vl-2b (hd 128, GQA 12:2) at one wave, the last three
            also timed beside scaled_dot_product_attention, with their
            bounds on the unpadded work;
-           bf16 goes through the tensor-core instances (wgmma, TMA), float32
-           through the CUDA-core one.  Each instance's SASS instruction counts
-           (HGMMA and UTMALDG required in bf16) and ptxas line (no spills), a
-           determinism check, and timings of both dtypes at full width in
-           turns with one scaled_dot_product_attention call (a yardstick
-           only);
+           both dtypes go through tensor-core instances (wgmma, TMA): bf16
+           directly, float32 as split TF32 after its prologue kernel.  Each
+           instance's SASS instruction counts (HGMMA and UTMALDG required)
+           and ptxas line (no spills; the prologue's too; no other kernel in
+           the library), determinism checks (float32 at the gemma-2b,
+           granite-moe and qwen2-vl-2b waves, bf16 at full width), and
+           timings of both dtypes at full width, and of float32 at hd 64
+           and 128 too, in turns with one scaled_dot_product_attention call
+           (a yardstick only; float32 with TF32 off), with the float32
+           split-TF32 bound beside the CUDA-core one;
   scan     the selective-scan kernel against its plain PyTorch version on
            the card: the repo's 4 test shapes, ragged shapes (S 1 and 77, d_inner
            no multiple of a CTA's channels, d_state 1, 3, 4, 8 and 32), 40
@@ -51,6 +55,11 @@ non-zero):
            gemma-2b smoke model through prefill and decode on the card (the
            kernel) and on the CPU (the plain version), logits held together,
            and the same in bf16 for the gemma-2b and gemma2-2b smoke models;
+  prefill_f32  main path O: gemma-2b at its published width with
+           compute_dtype float32 (TF32 off), 2 prefill waves of 4 x 1024
+           tokens through the float32 flash instance (36 launches), logits
+           held against the same prefill with the plain attention on the card
+           at float32's smoke tolerance, ms per wave;
   serve_ssm  main path D: the same traffic and checks on falcon-mamba-7b at
            its published width (64 Mamba layers, no attention), whose every
            prefill layer runs the scan kernel;
@@ -211,6 +220,7 @@ WIDTH_N, WIDTH_F, WIDTH_EB = 262_144, 2048, 512
 H100_BYTES_PER_S = HW["hbm_bw"]  # HBM3, NVIDIA H100 SXM data sheet: 3.35e12
 H100_F32_OPS_PER_S = HW["peak_flops_f32"]  # float32 outside the tensor cores: 67e12
 H100_BF16_OPS_PER_S = HW["peak_flops"]  # bf16 dense tensor cores: 989e12
+H100_TF32_OPS_PER_S = HW["peak_flops_tf32"]  # TF32 dense tensor cores: 495e12
 MOMENTS_OPS_PER_EVENT = 20  # float32 operations the kernel does per event
 MOMENTS_SASS = ("UCGABAR_ARV", "UCGABAR_WAIT", "LD", "LDS", "STS", "LDG", "STG", "ATOM",
                 "VOTE", "SHFL", "BAR", "MEMBAR")
@@ -234,6 +244,7 @@ FLASH_RAGGED = [  # shapes the Pallas wrapper refuses; the kernel masks the edge
     (2, 100, 100, 4, 2, 256, True, 40, 30.0, "bfloat16"),
 ]
 FLASH_FULL = (4, 1024, 1024, 8, 1, 256, True, 0, 0.0, "bfloat16")  # gemma-2b prefill wave
+FLASH_F32 = {"gemma-2b": FLASH_FULL[:9] + ("float32",)}  # the float32 instance, timed too
 FLASH_MODELS = {  # the other bf16 configs' attention at one wave (configs/*.py)
     "gemma2-2b": (4, 1024, 1024, 8, 4, 256, True, 4096, 50.0, "bfloat16"),
     "h2o-danube3-4b": (4, 1024, 1024, 32, 8, 120, True, 4096, 0.0, "bfloat16"),
@@ -244,6 +255,11 @@ FLASH_MOE = (4, 1024, 1024, 16, 8, 64, True, 0, 0.0, "bfloat16")  # granite-moe 
 FLASH_MLA = (4, 1024, 1024, 40, 40, 96, True, 0, 0.0, "bfloat16")
 FLASH_MLA_DV = 64
 FLASH_VL = (4, 1024, 1024, 12, 2, 128, True, 0, 0.0, "bfloat16")  # qwen2-vl-2b prefill wave
+FLASH_F32.update({"granite-moe-1b-a400m": FLASH_MOE[:9] + ("float32",),  # hd 64
+                  "qwen2-vl-2b": FLASH_VL[:9] + ("float32",)})  # hd 128
+# The kernels of one flash call on the profiler's list: the attention kernel
+# (counted against the wrapper's launches) and float32's split prologue.
+FLASH_CALL_KERNELS = ("flash_fwd", "flash_kv_split")
 # gemma2-2b's prefill in path L-a: 4 x 4608 tokens, past the local layers' window
 FLASH_GEMMA2 = (4, 4608, 4608, 8, 4, 256, True, 4096, 50.0, "bfloat16")
 FLASH_SASS = ("HGMMA", "UTMALDG", "SYNCS", "MUFU", "FFMA", "FMUL", "LDS", "STS", "BAR")
@@ -258,6 +274,10 @@ SCAN_FULL = (4, 1024, 8192, 16)  # falcon-mamba-7b prefill wave: B, S, d_inner, 
 SCAN_TOL = 1e-5  # tests/test_kernels.py:133-134
 SCAN_OPS_PER_STATE = 4  # h = a*h + b (2), h*C and its share of the sum over st (2)
 SERVE = dict(n_requests=8, batch=4, prompt_len=1024, max_new=32)
+# Path O: the float32 flash instance inside a model: gemma-2b at its
+# published width with compute_dtype float32 (TF32 off), path C's two waves
+# of 4 x 1024-token prompts, prefill only.
+PREFILL_F32 = dict(arch="gemma-2b", waves=2, batch=4, prompt_len=1024)
 SERVE_MOE = "granite-moe-1b-a400m"  # path G: the one MoE config whose float32 masters fit
 SERVE_MLA = "minicpm3-4b"  # path H: 62 MLA layers
 SERVE_VL = "qwen2-vl-2b"  # path I: M-RoPE and the vision stub, served by the example's twin
@@ -272,7 +292,7 @@ VIZ_POLL_S = 0.1
 VIZ_PUBLISHES = 200
 # Kernel-name classes of a MoE prefill's device time (torch.profiler names
 # on the H100: cuBLAS GEMMs are nvjet/xmma/cutlass kernels).
-DEVICE_CLASSES = (("flash", ("flash_fwd",)),
+DEVICE_CLASSES = (("flash", FLASH_CALL_KERNELS),
                   ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
                   ("sort", ("sort",)),
                   ("index", ("index", "gather", "scatter")),
@@ -957,9 +977,13 @@ def _flash_inputs(dev, case, seed, dv=None):
 def flash_bound(case, dv=None) -> dict:
     """The least time for one call at ``case``: the QK^T (head dim hd) and PV
     (head dim ``dv``, default hd) products of the live (query, key) pairs
-    over the bf16 tensor-core rate, against each input read once and the
-    output written once over the memory rate; unpadded, as the function
-    needs them (MLA's padding to a kernel width is not counted)."""
+    over the fastest rate that computes them to the case's type (bf16 tensor
+    cores; float32 as split TF32, three TF32 products of each pair on the
+    tensor cores, the float32 instance's arithmetic), against each input
+    read once and the output written once over the memory rate; unpadded,
+    as the function needs them (MLA's padding to a kernel width is not
+    counted).  In float32 also ``cuda_core_ms``, the same products on the
+    CUDA cores' float32 rate against the same bytes."""
     B, Sq, Sk, H, KV, hd, causal, window, _, dtype = case
     dv = dv or hd
     q = np.arange(Sq)[:, None]
@@ -972,11 +996,14 @@ def flash_bound(case, dv=None) -> dict:
     flops = 2.0 * (hd + dv) * B * H * float(live.sum())  # 2 per multiply-add, two products
     itemsize = 2 if dtype == "bfloat16" else 4
     nbytes = itemsize * (B * Sq * H * (hd + dv) + B * Sk * KV * (hd + dv))
-    rate = H100_BF16_OPS_PER_S if dtype == "bfloat16" else H100_F32_OPS_PER_S
+    rate = H100_BF16_OPS_PER_S if dtype == "bfloat16" else H100_TF32_OPS_PER_S / 3
     ops_ms, bytes_ms = flops / rate * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-    return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    out = {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    if dtype == "float32":
+        out["cuda_core_ms"] = max(flops / H100_F32_OPS_PER_S * 1e3, bytes_ms)
+    return out
 
 
 def phase_flash(dev, agree: OutputAgreement) -> dict:
@@ -1015,13 +1042,23 @@ def phase_flash(dev, agree: OutputAgreement) -> dict:
         f"{len(FLASH_RAGGED)} ragged shapes "
         f"and {FLASH_SWEEP} random shapes within 2e-5 (f32) / 2e-2 (bf16) of the plain version")
 
-    f32_err = compare("flash full width float32", FLASH_FULL[:9] + ("float32",), SEED)[-1]
+    f32_errs = {}
+    for arch, case in FLASH_F32.items():
+        q, k, v, out, f32_errs[arch] = compare(f"flash {arch} float32 {case}", case, SEED)
+        again = fa.flash_attention(q, k, v, causal=True)
+        if not torch.equal(out.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"flash: {arch}'s shape in float32: two launches on the same "
+                                 "input gave different results")
+        del q, k, v, out, again
+    log("flash: float32 (split TF32) at one wave of "
+        + ", ".join(f"{arch} {case[:6]} within 2e-5, max abs err {f32_errs[arch]:.3g}"
+                    for arch, case in FLASH_F32.items())
+        + "; two launches bitwise equal at each")
     q, k, v, out, _ = compare("flash full width", FLASH_FULL, SEED)
     again = fa.flash_attention(q, k, v, causal=True)
     if not torch.equal(out.view(torch.int16), again.view(torch.int16)):
         raise AssertionError("flash: two launches on the same input gave different results")
-    log(f"flash: full width {FLASH_FULL} ok (and in float32 within 2e-5, max abs err "
-        f"{f32_err:.3g}), two launches bitwise equal")
+    log(f"flash: full width {FLASH_FULL} ok, two launches bitwise equal")
     del q, k, v, out, again
     for arch, case in FLASH_MODELS.items():
         err = compare(f"flash {arch} {case}", case, SEED)[-1]
@@ -1068,25 +1105,44 @@ def phase_flash(dev, agree: OutputAgreement) -> dict:
             + f"; max abs diff to the kernel {timing['library_max_abs_diff']:.3g}), plain "
             f"{timing['plain_ms'] * 1e3:.1f} us, bound {timing['bound_ms'] * 1e3:.2f} us "
             f"({timing['bound_by']}: {timing['flops'] / 1e9:.2f} GFLOP, "
-            f"{timing['bytes'] / 1e6:.1f} MB); host enqueue {timing['host_ms'] * 1e3:.1f} us "
+            f"{timing['bytes'] / 1e6:.1f} MB)"
+            + (f", CUDA-core bound {timing['cuda_core_ms'] * 1e3:.2f} us"
+               if "cuda_core_ms" in timing else "")
+            + f"; host enqueue {timing['host_ms'] * 1e3:.1f} us "
             f"(its input checks {timing['host_check_ms'] * 1e3:.1f} us); "
             "device by kernel (torch.profiler, us/launch): "
             + (", ".join(f"{n} {m * 1e3:.1f}" for n, m in timing["device_ms"].items())
                or "not measured (no device time recorded)")
+            + f" (the call's kernels {_us(timing['device_call_ms'])} us)"
             + "; scaled_dot_product_attention's: "
             + (", ".join(f"{n} {m * 1e3:.1f}" for n, m in timing["library_device_ms"].items())
                or "not measured (no device time recorded)"))
         for hd in sorted(built[dtype]):
             log(f"flash[{dtype}] hd {hd}: ptxas {timing['ptxas'][hd]}; SASS "
                 + ", ".join(f"{op} {n}" for op, n in timing["sass"][hd].items()))
+    log(f"flash[float32] prologue flash_kv_split_tf32: ptxas {built['prologue']['ptxas']}"
+        + "".join(f"; ptxas says: {w}" for w in built["warnings"]))
     shapes = {"moe": (SERVE_MOE, flash_timing(dev, FLASH_MOE)),
               "mla": (SERVE_MLA, flash_timing(dev, FLASH_MLA, dv=FLASH_MLA_DV)),
               "vl": (SERVE_VL, flash_timing(dev, FLASH_VL)),
-              "gemma2": ("gemma2-2b", flash_timing(dev, FLASH_GEMMA2))}
+              "gemma2": ("gemma2-2b", flash_timing(dev, FLASH_GEMMA2)),
+              "moe_f32": (SERVE_MOE, flash_timing(dev, FLASH_F32[SERVE_MOE])),
+              "vl_f32": (SERVE_VL, flash_timing(dev, FLASH_F32[SERVE_VL]))}
     for arch, t in shapes.values():
         log_flash_shape(arch, t)
-    return {**instances["bfloat16"], "instances": instances,
+    return {**instances["bfloat16"], "instances": instances, "f32_errs": f32_errs,
             **{key: t for key, (_, t) in shapes.items()}}
+
+
+def _us(ms) -> str:
+    return "not measured" if ms is None else f"{ms * 1e3:.1f}"
+
+
+def flash_call_device_ms(device_ms: dict):
+    """Device ms of one flash call: its kernels (FLASH_CALL_KERNELS) summed
+    over the profile's per-launch times; None where nothing was recorded."""
+    parts = [ms for name, ms in device_ms.items() if any(k in name for k in FLASH_CALL_KERNELS)]
+    return sum(parts) if parts else None
 
 
 def log_flash_shape(arch: str, t: dict) -> None:
@@ -1103,18 +1159,22 @@ def log_flash_shape(arch: str, t: dict) -> None:
         + f"; max abs diff to the kernel {t['library_max_abs_diff']:.3g}), plain "
         f"{t['plain_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.2f} us "
         f"({t['bound_by']}: {t['flops'] / 1e9:.2f} GFLOP, {t['bytes'] / 1e6:.1f} MB; "
-        f"the bytes alone {t['bytes_ms'] * 1e3:.2f} us); host enqueue "
+        f"the bytes alone {t['bytes_ms'] * 1e3:.2f} us"
+        + (f"; CUDA cores {t['cuda_core_ms'] * 1e3:.2f} us" if "cuda_core_ms" in t else "")
+        + f"); host enqueue "
         f"{t['host_ms'] * 1e3:.1f} us (its input checks {t['host_check_ms'] * 1e3:.1f} us); "
         "device by kernel (torch.profiler, us/launch): "
         + (", ".join(f"{n} {m * 1e3:.1f}" for n, m in t["device_ms"].items())
            or "not measured (no device time recorded)")
+        + f" (the call's flash kernels {_us(t['device_call_ms'])} us)"
         + "; scaled_dot_product_attention's: "
         + (", ".join(f"{n} {m * 1e3:.1f}" for n, m in t["library_device_ms"].items())
            or "not measured (no device time recorded)"))
 
 
-_FLASH_INSTANCE = re.compile(r"flash_fwd_(wgmma_bf16|simt_f32)ILi(\d+)E")
-_FLASH_DTYPE = {"wgmma_bf16": "bfloat16", "simt_f32": "float32"}
+_FLASH_INSTANCE = re.compile(r"flash_fwd_(wgmma_bf16|wgmma_f32)ILi(\d+)E")
+_FLASH_DTYPE = {"wgmma_bf16": "bfloat16", "wgmma_f32": "float32"}
+_FLASH_PROLOGUE = "flash_kv_split_tf32"
 _SASS_OP = re.compile(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", re.M)
 
 
@@ -1167,37 +1227,56 @@ def moments_build_facts() -> dict:
 
 def flash_build_facts() -> dict:
     """{dtype: {hd: {"ptxas": its -Xptxas -v line, "sass": instruction counts}}}
-    of every instance in the built flash library.  Raises if an instance is
-    missing, spills, or (bf16) lacks HGMMA (wgmma) or UTMALDG (TMA loads)."""
+    of every instance in the built flash library, "prologue": the float32
+    split kernel's, and "warnings": ptxas's wgmma warnings.  Raises if an
+    instance or the prologue is missing or spills, if an instance lacks
+    HGMMA (wgmma) or UTMALDG (TMA loads), or if any other kernel is left in
+    the library (the float32 CUDA-core instance it replaced)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
 
-    facts, current = {}, None
-    for line in _build.build_log("flash_attention").splitlines():
+    log_text = _build.build_log("flash_attention")
+    facts, current = {"prologue": {"ptxas": []}}, None
+    for line in log_text.splitlines():
         m = _FLASH_INSTANCE.search(line)
         if "Compiling entry function" in line and m:
             current = facts.setdefault(_FLASH_DTYPE[m.group(1)], {}).setdefault(
                 int(m.group(2)), {"ptxas": [], "sass": {}})
+        elif "Compiling entry function" in line:
+            current = facts["prologue"] if _FLASH_PROLOGUE in line else None
         elif current is not None and ("registers" in line or "spill" in line):
             current["ptxas"].append(line.replace("ptxas info    :", "").strip())
+    notes = Counter()  # ptxas's notes on wgmma (C75xx: serialised, or fences injected)
+    for line in log_text.splitlines():
+        code, m = re.search(r"\(C75\d\d\)", line), _FLASH_INSTANCE.search(line)
+        if code and "GMMA" in line.upper():
+            where = f"{_FLASH_DTYPE[m.group(1)]} hd {m.group(2)}" if m else "?"
+            notes[f"{code[0]} {line.split(code[0], 1)[1].split(' in around')[0].strip()} "
+                  f"({where})"] += 1
+    facts["warnings"] = [f"{text} x {n}" for text, n in sorted(notes.items())]
+    others = []
     for function, ops in sass_by_function("flash_attention").items():
         m = _FLASH_INSTANCE.search(function)
         if m:
             facts[_FLASH_DTYPE[m.group(1)]][int(m.group(2))]["sass"] = {
                 **{op: ops[op] for op in FLASH_SASS}, "total": sum(ops.values())}
-    for dtype in ("bfloat16", "float32"):
-        for hd in fa.HEAD_DIMS:
-            f = facts.get(dtype, {}).get(hd)
-            if f is None or not f["sass"]:
-                raise AssertionError(f"flash: no {dtype} hd {hd} instance in the ptxas log or SASS")
-            f["ptxas"] = "; ".join(f["ptxas"])
-            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", f["ptxas"])
-            if spills is None or int(spills[1]) or int(spills[2]):
-                raise AssertionError(f"flash: {dtype} hd {hd} spills or has no ptxas line: "
-                                     f"{f['ptxas']}")
-            if dtype == "bfloat16" and not (f["sass"]["HGMMA"] and f["sass"]["UTMALDG"]):
-                raise AssertionError(f"flash: bf16 hd {hd} SASS lacks HGMMA or UTMALDG: "
-                                     f"{f['sass']}")
+        elif _FLASH_PROLOGUE not in function:
+            others.append(function)
+    if others:
+        raise AssertionError(f"flash: the library holds kernels other than the instances and "
+                             f"the prologue: {others}")
+    for f in [facts["prologue"]] + [facts.get(dtype, {}).get(hd) for dtype in
+                                    ("bfloat16", "float32") for hd in fa.HEAD_DIMS]:
+        if f is None or ("sass" in f and not f["sass"]) or not f["ptxas"]:
+            raise AssertionError("flash: an instance or the prologue is missing from the "
+                                 f"ptxas log or SASS: {sorted(facts)}")
+        f["ptxas"] = "; ".join(f["ptxas"])
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", f["ptxas"])
+        if spills is None or int(spills[1]) or int(spills[2]):
+            raise AssertionError(f"flash: a kernel spills or has no ptxas line: {f['ptxas']}")
+        if "sass" in f and not (f["sass"]["HGMMA"] and f["sass"]["UTMALDG"]):
+            raise AssertionError(f"flash: an instance's SASS lacks HGMMA or UTMALDG: "
+                                 f"{f['sass']}")
     return facts
 
 
@@ -1205,7 +1284,10 @@ def flash_timing(dev, case, dv=None) -> dict:
     """One instance at ``case`` (its mask, window and softcap): CUDA-event ms
     per call in turns with scaled_dot_product_attention (kernel, SDPA, SDPA,
     kernel), the plain version's ms, host enqueue ms, device ms per launch of
-    the kernel and of SDPA's kernels (torch.profiler) and the bound.  SDPA
+    each kernel of the call (float32: the split prologue and the attention
+    kernel, summed in ``device_call_ms``) and of SDPA's kernels
+    (torch.profiler; float32 SDPA with TF32 off, as phase_env's parity mode
+    leaves it for the whole run) and the bound.  SDPA
     takes no window or softcap: where the case has one, it computes the
     causal attention of the same shape (``library_same_function`` False), a
     yardstick of the shape only.  Where
@@ -1236,6 +1318,8 @@ def flash_timing(dev, case, dv=None) -> dict:
         qt, kt, vt, is_causal=case[6], enable_gqa=True)
     lib_diff = float((library().transpose(1, 2).float() - launch().float()).abs().max())
     turns = [cuda_ms(fn, iters=20) for fn in (launch, library, library, launch)]
+    library_device_ms = device_ms_by_kernel(library, iters=5)
+    device_ms = device_ms_by_kernel(launch, iters=5)
     return {
         "case": case,
         "dv": dv,
@@ -1246,8 +1330,9 @@ def flash_timing(dev, case, dv=None) -> dict:
         "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v, **mask), iters=5),
         "host_ms": host_ms(launch, iters=20),
         "host_check_ms": host_ms(lambda: fa._check(*checked), iters=200),  # part of host_ms
-        "device_ms": device_ms_by_kernel(launch, iters=5),
-        "library_device_ms": device_ms_by_kernel(library, iters=5),
+        "device_ms": device_ms,
+        "device_call_ms": flash_call_device_ms(device_ms),
+        "library_device_ms": library_device_ms,
         "library_max_abs_diff": lib_diff,
         **flash_bound(case, dv),
     }
@@ -1345,15 +1430,17 @@ def phase_scan(dev, agree: OutputAgreement) -> dict:
 def device_breakdown(fn) -> dict:
     """One profiled call of ``fn``: device ms by kernel (top 8), the sum, the
     host wall ms around it, the share of that wall time the device spent in
-    no kernel (one stream, so kernels do not overlap), and the number of
-    top-level aten ops the host dispatched."""
+    no kernel (one stream, so kernels do not overlap), the number of
+    top-level aten ops the host dispatched and the launches by kernel (each
+    port kernel's equal to its wrapper's count, or ``profiled`` raises)."""
     by_kernel, wall_ms, (ops, syncs) = profiled(fn, 1)
     busy = sum(ms for ms, _ in by_kernel.values())
     top = dict(sorted(((k, ms) for k, (ms, _) in by_kernel.items()), key=lambda kv: -kv[1])[:8])
     return {"wall_ms": wall_ms, "device_ms": busy, "top": top, "host_ops": int(ops),
             "host_syncs": int(syncs),
             "idle_share": (1.0 - busy / wall_ms) if busy > 0 else None,
-            "by_kernel": {k: ms for k, (ms, _) in by_kernel.items()}}
+            "by_kernel": {k: ms for k, (ms, _) in by_kernel.items()},
+            "launches": {k: n for k, (_, n) in by_kernel.items()}}
 
 
 def step_peak_bytes(dev, fn):
@@ -1489,6 +1576,103 @@ def phase_serve(dev, arch: str, kernel: str, bf16_smokes=(), monitor=None) -> di
             "decode_idle_share": prof_decode["idle_share"], "smoke": smoke,
             "prefill_by_kernel": prof_prefill["by_kernel"], "vision": vision,
             "prefill_peak_bytes": prefill_peak, "prefill_held_bytes": held}
+
+
+def phase_prefill_f32(dev) -> dict:
+    """Path O: PREFILL_F32's waves through models.model.prefill in float32
+    at full width: one float32 flash launch per layer per wave (counts set
+    to 0 just before, read just after) and no other kernel; each wave's
+    logits held against the same prefill with attention through the plain
+    version on the card, at SMOKE_TOL["float32"]; ms per wave (CUDA events)
+    in the counted run, then once more, beside the plain attention's; one
+    wave traced (torch.profiler): its flash launches against the wrapper's
+    count, the device time of its flash kernels and the idle share."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models import model as M
+    from repro_torch.models.common import init_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    P = PREFILL_F32
+    tag = f"prefill_f32[{P['arch']}]"
+    cfg = dataclasses.replace(configs.get_config(P["arch"]), compute_dtype=torch.float32)
+    cparams = M.compute_params(cfg, init_params(cfg, SEED, dev))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    waves = [torch.randint(0, cfg.vocab, (P["batch"], P["prompt_len"]), generator=g,
+                           device=dev, dtype=torch.int32) for _ in range(P["waves"])]
+
+    def timed(toks):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits = M.prefill(cfg, cparams, {"tokens": toks})[0]
+        end.record()
+        end.synchronize()
+        return logits[..., :cfg.vocab].float(), start.elapsed_time(end)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    runs = [timed(t) for t in waves]
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    again_ms = [timed(t)[1] for t in waves]
+    prof = device_breakdown(lambda: M.prefill(cfg, cparams, {"tokens": waves[0]}))
+    kernel = ops._fa.flash_attention
+    ops._fa.flash_attention = flash_attention_ref
+    try:
+        plain = [timed(t) for t in waves]
+    finally:
+        ops._fa.flash_attention = kernel
+    want = {name: (cfg.n_layers * P["waves"] if name == "flash_attention" else 0)
+            for name in counts}
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts}, expected {want} (float32 flash once "
+                             f"per layer per wave: {cfg.n_layers} layers x {P['waves']} waves)")
+    traced = {part: sum(n for k, n in prof["launches"].items() if part in k)
+              for part in FLASH_CALL_KERNELS}
+    if traced != {part: cfg.n_layers for part in FLASH_CALL_KERNELS}:
+        raise AssertionError(f"{tag}: the traced wave launched {traced}, expected "
+                             f"{cfg.n_layers} of each (one flash call per layer)")
+    flash_ms = sum(ms for k, ms in prof["by_kernel"].items()
+                   if any(part in k for part in FLASH_CALL_KERNELS))
+    tol = SMOKE_TOL["float32"]
+    diffs = []
+    for i, ((got, _), (ref, _)) in enumerate(zip(runs, plain)):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{tag}: wave {i}: non-finite logits")
+        err = (got - ref).abs()
+        beyond = int((err > tol["atol"] + tol["rtol"] * ref.abs()).sum())
+        if beyond:
+            raise AssertionError(f"{tag}: wave {i}: {beyond} logits beyond rtol {tol['rtol']} / "
+                                 f"atol {tol['atol']} of the plain attention's, max abs diff "
+                                 f"{float(err.max()):.3g}")
+        diffs.append(float(err.max()))
+    ms = [m for _, m in runs]
+    plain_ms = [m for _, m in plain]
+    log(f"{tag}: float32 at full width ({cfg.n_layers} layers, d {cfg.d_model}, H "
+        f"{cfg.n_heads}, KV {cfg.n_kv_heads}, hd {cfg.head_dim}), {P['waves']} waves of "
+        f"{P['batch']} x {P['prompt_len']} tokens: launches {counts}; ms per wave "
+        + ", ".join(f"{m:.2f}" for m in ms) + " (counted run), "
+        + ", ".join(f"{m:.2f}" for m in again_ms) + " (again); with the plain attention "
+        + ", ".join(f"{m:.2f}" for m in plain_ms) + "; last-position logits within rtol "
+        f"{tol['rtol']} / atol {tol['atol']} of the plain attention's, max abs diff "
+        + ", ".join(f"{d:.3g}" for d in diffs)
+        + f" (largest logit {max(float(r.abs().max()) for r, _ in plain):.3g}); peak memory "
+        f"{peak / 1e9:.2f} GB")
+    log(f"{tag}: one wave traced: launches {traced} (the wrapper's count {cfg.n_layers}), "
+        f"wall {prof['wall_ms']:.2f} ms, device busy {prof['device_ms']:.2f} ms, of which "
+        f"flash {flash_ms:.2f} ms, idle share "
+        + (f"{prof['idle_share']:.3f}" if prof["idle_share"] is not None else "not measured")
+        + "; top kernels (ms): " + ", ".join(f"{n} {m:.3f}" for n, m in prof["top"].items()))
+    del cparams, runs, plain
+    return {"counts": counts, "ms_per_wave": ms, "again_ms_per_wave": again_ms,
+            "plain_ms_per_wave": plain_ms, "max_abs_diff": diffs, "peak_bytes": peak,
+            "traced_launches": traced, "traced_device_ms": prof["device_ms"],
+            "traced_flash_ms": flash_ms, "idle_share": prof["idle_share"]}
 
 
 def vision_prefill(tag: str, cfg, cparams, dev, max_seq: int) -> dict:
@@ -2048,8 +2232,8 @@ def phase_train_audio(dev) -> dict:
 # ---------------------------------------------------------------- refusals
 def phase_refusals(dev) -> None:
     """The card's own limits stay refusals on the card and only there: an F
-    beyond a block's shared memory (moments) and a bf16 view off a 16-byte
-    boundary (flash's TMA) raise for CUDA tensors without a launch, and the
+    beyond a block's shared memory (moments) and a bf16 or float32 view off
+    a 16-byte boundary (flash's TMA) raise for CUDA tensors without a launch, and the
     same inputs on the CPU take the plain versions."""
     import torch
 
@@ -2068,7 +2252,10 @@ def phase_refusals(dev) -> None:
                 fids.to(d), durs.to(d), table.to(d)), "exceeds a block's"),
             ("flash misaligned bf16", lambda d: fa.flash_attention(
                 torch.zeros(shifted.numel() + 1, dtype=torch.bfloat16, device=d)[1:]
-                .view(shifted.shape), kv.to(d), kv.to(d)), "16-byte boundary")):
+                .view(shifted.shape), kv.to(d), kv.to(d)), "16-byte boundary"),
+            ("flash misaligned float32", lambda d: fa.flash_attention(
+                torch.zeros(shifted.numel() + 1, device=d)[1:].view(shifted.shape),
+                kv.float().to(d), kv.float().to(d)), "16-byte boundary")):
         try:
             call(dev)
         except ValueError as e:
@@ -2083,8 +2270,8 @@ def phase_refusals(dev) -> None:
     if not torch.equal(got_t, want_t) or not torch.equal(
             fa.flash_attention(shifted, kv, kv), flash_attention_ref(shifted, kv, kv)):
         raise AssertionError("refusals: the CPU did not take the plain versions")
-    log("refusals: on the card moments F 20000 and a misaligned bf16 flash view raise "
-        "without a launch; on the CPU both take the plain versions")
+    log("refusals: on the card moments F 20000 and misaligned bf16 and float32 flash views "
+        "raise without a launch; on the CPU both take the plain versions")
 
 
 # -------------------------------------------------------------------- train
@@ -4133,6 +4320,7 @@ def main() -> int:
             width = phase_width(dev, agree)
             served = phase_serve(dev, "gemma-2b", "flash_attention",
                                  bf16_smokes=("gemma-2b", "gemma2-2b"))
+            prefill_f32 = phase_prefill_f32(dev)
             served_ssm = phase_serve(dev, "falcon-mamba-7b", "mamba_scan")
             served_moe = phase_serve_moe(dev)
             served_mla = phase_serve(dev, SERVE_MLA, "flash_attention",
@@ -4175,6 +4363,7 @@ def main() -> int:
     roofline = phase_roofline(dry, timed, env["smi"])
 
     paths = {"trace": trace["counts"], "width": width["counts"], "serve": served["counts"],
+             "prefill_f32": prefill_f32["counts"],
              "serve_ssm": served_ssm["counts"], "serve_moe": served_moe["counts"],
              "serve_mla": served_mla["counts"], "serve_vl": served_vl["counts"],
              "train": trained["counts"], "train_socket": trained_socket["counts"],
@@ -4182,7 +4371,8 @@ def main() -> int:
              "train_dp": dp["counts"], "seq_parallel": seq["counts"],
              "train_mesh": mesh_train["counts"], "serve_mesh": mesh_serve["counts"]}
     needs = {"trace": ("moments_and_labels",), "width": ("moments_and_labels",),
-             "serve": ("flash_attention",), "serve_ssm": ("mamba_scan",),
+             "serve": ("flash_attention",), "prefill_f32": ("flash_attention",),
+             "serve_ssm": ("mamba_scan",),
              "serve_moe": ("flash_attention",), "serve_mla": ("flash_attention",),
              "serve_vl": ("flash_attention",), "seq_parallel": ("flash_attention", "mamba_scan"),
              "serve_mesh": ("flash_attention", "mamba_scan")}
@@ -4256,11 +4446,19 @@ def main() -> int:
         "host_ms": flash["host_ms"],
         "device_ms": flash["device_ms"],
         "instances": {dtype: {key: inst[key] for key in (
-            "ms", "turns_ms", "device_ms", "host_ms", "host_check_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "library_device_ms", "sass", "ptxas")}
+            "ms", "turns_ms", "device_ms", "device_call_ms", "host_ms", "host_check_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms", "sass",
+            "ptxas") + (("cuda_core_ms",) if dtype == "float32" else ())}
             for dtype, inst in flash["instances"].items()},
         "serve": serve_numbers(served),
         "smoke": served["smoke"],
+        "prefill_f32": {k: v for k, v in prefill_f32.items() if k != "counts"},
+        "f32_max_abs_err": flash["f32_errs"],
+        "f32_shapes": {arch: {**shape_numbers(flash[key]),
+                              "cuda_core_ms": flash[key]["cuda_core_ms"],
+                              "device_call_ms": flash[key]["device_call_ms"],
+                              "max_abs_err": flash["f32_errs"][arch]}
+                       for key, arch in (("moe_f32", SERVE_MOE), ("vl_f32", SERVE_VL))},
         "moe_shape": shape_numbers(flash["moe"]),
         "mla_shape": shape_numbers(flash["mla"]),
         "vl_shape": shape_numbers(flash["vl"]),

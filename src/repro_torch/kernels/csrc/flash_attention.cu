@@ -14,7 +14,7 @@
 // wholly outside the causal, window or kv_len band are never loaded (the
 // TPU kernel's pl.when skip); ragged Sq and Sk are masked here, so no input
 // needs padding to a tile multiple.  Two instances, each for hd 64, 128
-// and 256:
+// and 256, both wgmma fed by TMA:
 //
 // bfloat16: flash_fwd_wgmma_bf16, on the tensor cores.
 //   Bound.  At the serving prefill shape (B 4, S 1024, H 8, KV 1, hd 256,
@@ -46,7 +46,7 @@
 //   * The two consumers run independently, so one's softmax overlaps the
 //     other's products.  No atomics and no split over kv: two launches on
 //     the same input give the same bits.
-//   What it does about the limits of the float32 design below: the products
+//   What it does about the limits of the first, CUDA-core design: the products
 //   run on the tensor cores, not the CUDA cores; tiles are bf16 fed by TMA
 //   while the consumers compute, not float32 stored by every thread between
 //   barriers; neither product reads its operands through the CUDA cores' shared
@@ -62,19 +62,65 @@
 //   (chip_smoke.py:smoke_card_vs_cpu).  tanh (softcap only) and the final
 //   division by l are IEEE; the exponent is ex2.approx (2 ulp).
 //
-// float32: flash_fwd_simt_f32, on the CUDA cores.  float32 is held at 2e-5
-//   (tests/test_kernels.py:88), which TF32 (wgmma's only float32 product)
-//   cannot meet, so this instance computes in float32 throughout:
-//   explicit __fmaf_rn products (the build's -fmad=false leaves the rest
-//   of the arithmetic uncontracted), IEEE expf, tanhf and division.  One
-//   CTA of 256 threads per (b*H + h, 64-row q tile), q tiles longest-first;
-//   the Q tile and each 64-row K and V tile are staged in shared memory as
-//   float32 with row stride hd + 4 (217 KB at hd 256: one CTA per SM);
-//   thread (ty, tx) of a 16 x 16 layout owns query rows 4*ty .. 4*ty+3,
-//   scores them against keys tx + 16 j, reduces row max and sum over its
-//   half-warp and keeps its rows' m, l and 4 x hd/16 slice of acc in
-//   registers; P goes through shared memory once per tile.  Its bound is
-//   the CUDA cores' 67 TFLOP/s: ~257 us at the serving shape in float32.
+// float32: flash_fwd_wgmma_f32, split TF32 on the tensor cores.
+//   Bound.  The same 17.20 GFLOP at the serving shape take 256.67 us on the
+//   CUDA cores' 67 TFLOP/s.  wgmma's float32 product is TF32 (10 mantissa
+//   bits, ~2^-11 relative per product), which alone cannot hold the 2e-5 of
+//   tests/test_kernels.py:88.  Split TF32 (3xTF32) can: x = hi + lo with
+//   hi = tf32(x) and lo = tf32(x - hi) (x - hi is exact), and
+//   a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, summed in float32, leaves ~2^-21
+//   relative per product, float32's order.  Three TF32 products at
+//   495 TFLOP/s bound it at 3 x 17.20e9 / 495e12 = 104.2 us; the 75.4 MB of
+//   float32 q, k, v and output take 22.5 us.  tf32 rounds to nearest, ties
+//   away from zero (cvt.rna.tf32.f32), so every operand the tensor cores see
+//   is exactly a TF32 value.
+//   Design.  Two kernels on the caller's stream, no atomics, no split over
+//   kv: two launches on the same input give the same bits.
+//   * flash_kv_split_tf32, the prologue, writes K_hi, K_lo (B, Sk, KV, hd)
+//     and V^T_hi, V^T_lo (B, KV, hd, Sk rounded up to 8) into scratch the
+//     wrapper allocates.  tf32 wgmma takes no transposed operand, so both
+//     shared-memory operands are K-major: for O += P V the keys are V's K
+//     dimension, hence V^T.  Each group of 8 keys is stored as 0, 2, 4, 6,
+//     1, 3, 5, 7: a thread's f32 score fragment holds columns 2t and 2t + 1
+//     of each 8, the tf32 A fragment wants t and t + 4, and this order makes
+//     the one the other (a0..a3 = d0, d2, d1, d3) with no shuffle.
+//   * flash_fwd_wgmma_f32 is the bf16 instance's skeleton: one CTA per
+//     (b*H + h, q tile), tiles issued longest-first, a producer warpgroup
+//     whose one thread issues TMA loads (float32 boxes of 32 columns, 128 B,
+//     the 128-byte swizzle) completing on mbarriers, and consumer
+//     warpgroups of 64 query rows.  Q arrives once; each consumer splits its
+//     rows in shared memory (Q_hi in place, Q_lo beside it), fences the
+//     async proxy and syncs its warpgroup.  K and V^T stream through a ring
+//     of 32 KB slots, each one chunk of a 64-key tile: 64 head-dim columns
+//     of K (or rows of V^T), hi then lo; per tile hd/64 K chunks, then hd/64
+//     V^T chunks.  Shared memory sets the shape: Q_hi + Q_lo take 512 B a
+//     row per 64 head dims, so hd 64 and 128 run two consumers (128 rows)
+//     with 5 and 3 slots, hd 256 one consumer (64 rows; 128 rows would need
+//     256 KB for Q alone) with 3 slots; 225 KB in all.  With one consumer
+//     no register budget has to move, so only two consumers use setmaxnreg.
+//     hd 256's one consumer was chosen by measurement: two consumers there,
+//     with Q_hi of 128 rows in shared memory and Q_lo's A fragments made in
+//     registers from q read from L2 two k8 steps at a time
+//     (benchmarks/flash_f32_hd256_two_consumers.patch), need more than the
+//     240 registers setmaxnreg leaves a consumer (O alone takes 128, P's
+//     split 64): ptxas spills and serialises the wgmmas (C7512), and a call
+//     at the serving shape took 292-295 us of device time against this
+//     layout's 206-209 us (benchmarks/bench_flash_f32.py, H100).
+//   * S = Q K^T is wgmma m64n64k8 with both operands in shared memory,
+//     three per k8 step (Q_lo K_hi, Q_hi K_lo, then Q_hi K_hi: the small
+//     terms first, as CUTLASS's 3xTF32 takes them); O += P V is m64n64k8 per
+//     64 output columns with P_hi and P_lo split in registers as the A
+//     operand.  A chunk's slot is freed (one arrival per consumer warp) once
+//     the next chunk's products are issued and its own have completed, so
+//     the tensor pipe does not drain between chunks.
+//   * The softmax is the bf16 instance's: registers only, ex2.approx with
+//     log2(e) folded into the scale, masks only on edge tiles, l summed from
+//     the float32 p, tanh and the final division IEEE.
+//   Against the CUDA-core design it replaces (flash_fwd_simt_f32):
+//   the products run on the tensor cores; tiles arrive by TMA while the
+//   consumers compute instead of through every thread's loads between two
+//   barriers; neither product reads operands with the CUDA cores' shared
+//   memory loads; P stays in registers; exp is one ex2.approx.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -84,228 +130,8 @@
 
 namespace {
 
-constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxDevices = 64;
-
-// ------------------------------------------------- float32, CUDA cores
-namespace simt {
-
-constexpr int kBQ = 64;        // query rows per CTA
-constexpr int kBK = 64;        // key rows per kv tile
-constexpr int kThreads = 256;  // 16 (ty) x 16 (tx)
-constexpr int kLDP = kBK + 4;  // row stride of the P tile, floats
-
-template <int HD>
-constexpr int smem_bytes() {
-  return 4 * (kBQ * (HD + 4) + 2 * kBK * (HD + 4) + kBQ * kLDP);
-}
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
-  s = __fmaf_rn(a.x, b.x, s);
-  s = __fmaf_rn(a.y, b.y, s);
-  s = __fmaf_rn(a.z, b.z, s);
-  return __fmaf_rn(a.w, b.w, s);
-}
-
-// Reductions over the 16 lanes of a half-warp (the threads sharing ty).
-__device__ __forceinline__ float half_warp_max(float x) {
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-__device__ __forceinline__ float half_warp_sum(float x) {
-  for (int o = 8; o > 0; o >>= 1) x = __fadd_rn(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1) flash_fwd_simt_f32(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int Sq, int Sk, int H, int KV, int causal, int window,
-    float cap, float scale, int kv_len) {
-  constexpr int LD = HD + 4;  // row stride of the Q, K and V tiles, floats
-  constexpr int NC = HD / 64;  // float4 output columns per thread: tx*4 + 64*c
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kBQ * LD;
-  float* Vs = Ks + kBK * LD;
-  float* Ps = Vs + kBK * LD;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x - b * H;
-  const int kvh = h / (H / KV);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest causal rows first
-  const long long q_stride = static_cast<long long>(H) * HD;  // between positions
-  const long long k_stride = static_cast<long long>(KV) * HD;
-  const float* qb = q + (static_cast<long long>(b) * Sq * H + h) * HD;
-  const float* kb = k + (static_cast<long long>(b) * Sk * KV + kvh) * HD;
-  const float* vb = v + (static_cast<long long>(b) * Sk * KV + kvh) * HD;
-  float* ob = o + (static_cast<long long>(b) * Sq * H + h) * HD;
-
-  for (int idx = tid; idx < kBQ * HD / 4; idx += kThreads) {
-    const int r = idx / (HD / 4);
-    const int c = (idx - r * (HD / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < Sq) x = load4(qb + (q0 + r) * q_stride + c);
-    store4(Qs + r * LD + c, x);
-  }
-
-  // The kv range these rows can see: [k_begin, k_end).
-  const int k_live = min(kv_len, Sk);
-  int k_end = k_live;
-  if (causal) k_end = min(k_end, min(q0 + kBQ, Sq));
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-
-  float m[4], l[4], acc[4][4 * NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = (k_begin / kBK) * kBK; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    for (int idx = tid; idx < kBK * HD / 4; idx += kThreads) {
-      const int r = idx / (HD / 4);
-      const int c = (idx - r * (HD / 4)) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vx = kx;
-      if (k0 + r < Sk) {
-        kx = load4(kb + (k0 + r) * k_stride + c);
-        vx = load4(vb + (k0 + r) * k_stride + c);
-      }
-      store4(Ks + r * LD + c, kx);
-      store4(Vs + r * LD + c, vx);
-    }
-    __syncthreads();
-
-    // Scores of rows 4*ty + i against keys tx + 16*j.
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 a[4], kk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = load4(Qs + (4 * ty + i) * LD + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kk[j] = load4(Ks + (tx + 16 * j) * LD + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dot4(a[i], kk[j], s[i][j]);
-    }
-
-    // Mask, then the online-softmax update of each row.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + 4 * ty + i;
-      unsigned live = 0;
-      float row_max = kNeg;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = __fmul_rn(s[i][j], scale);
-        if (cap > 0.f) x = __fmul_rn(tanhf(__fdiv_rn(x, cap)), cap);
-        bool ok = kpos < k_live;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && qpos - kpos < window;
-        s[i][j] = ok ? x : kNeg;
-        live |= static_cast<unsigned>(ok) << j;
-        row_max = fmaxf(row_max, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(row_max));
-      const float r = expf(__fsub_rn(m[i], m_new));
-      float p_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = (live >> j) & 1u ? expf(__fsub_rn(s[i][j], m_new)) : 0.f;
-        Ps[(4 * ty + i) * kLDP + tx + 16 * j] = p;
-        p_sum = __fadd_rn(p_sum, p);
-      }
-      l[i] = __fadd_rn(__fmul_rn(l[i], r), half_warp_sum(p_sum));
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * NC; ++c) acc[i][c] = __fmul_rn(acc[i][c], r);
-    }
-    __syncthreads();
-
-    // acc += P V over this tile's keys.
-#pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float4 p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = load4(Ps + (4 * ty + i) * kLDP + kk);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float4 vx = load4(Vs + (kk + e) * LD + 64 * c + 4 * tx);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float pe = e == 0 ? p[i].x : e == 1 ? p[i].y : e == 2 ? p[i].z : p[i].w;
-            acc[i][4 * c + 0] = __fmaf_rn(pe, vx.x, acc[i][4 * c + 0]);
-            acc[i][4 * c + 1] = __fmaf_rn(pe, vx.y, acc[i][4 * c + 1]);
-            acc[i][4 * c + 2] = __fmaf_rn(pe, vx.z, acc[i][4 * c + 2]);
-            acc[i][4 * c + 3] = __fmaf_rn(pe, vx.w, acc[i][4 * c + 3]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + 4 * ty + i;
-    if (qpos >= Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const float4 x = make_float4(
-          __fdiv_rn(acc[i][4 * c + 0], den), __fdiv_rn(acc[i][4 * c + 1], den),
-          __fdiv_rn(acc[i][4 * c + 2], den), __fdiv_rn(acc[i][4 * c + 3], den));
-      store4(ob + qpos * q_stride + 64 * c + 4 * tx, x);
-    }
-  }
-}
-
-template <int HD>
-int launch(const float* q, const float* k, const float* v, float* o, int B, int Sq, int Sk,
-           int H, int KV, int causal, int window, float cap, float scale, int kv_len,
-           cudaStream_t stream) {
-  static bool configured[kMaxDevices];  // one per instance: the smem attribute is set
-  constexpr int smem = smem_bytes<HD>();
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!configured[device]) {
-    err = cudaFuncSetAttribute(flash_fwd_simt_f32<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured[device] = true;
-  }
-  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_simt_f32<HD><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, Sq, Sk, H, KV, causal, window, cap, scale, kv_len);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace simt
 
 // ------------------------------------------- bfloat16, tensor cores
 namespace tc {
@@ -773,28 +599,529 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
 
 }  // namespace tc
 
+// ------------------------------------- float32, split TF32 on the tensor cores
+namespace tf32 {
+
+using tc::ex2;
+using tc::fence_regs;
+using tc::kConsumerRegs;
+using tc::kEncodeFailed;
+using tc::kProducerRegs;
+using tc::mbar_arrive;
+using tc::mbar_expect_tx;
+using tc::mbar_init;
+using tc::mbar_wait;
+using tc::neg_inf;
+using tc::smem_u32;
+using tc::sw128_desc;
+using tc::tma_load;
+using tc::wgmma_commit;
+using tc::wgmma_fence;
+using tc::wgmma_wait_all;
+
+constexpr int kBK = 64;     // key rows per kv tile
+constexpr int kChunk = 64;  // head-dim columns of a K chunk, head-dim rows of a V^T chunk
+constexpr int kBox = 32;    // float32 columns per TMA box: 128 B, the swizzle span
+constexpr int kBoxBytes = 64 * kBox * 4;   // a box of 64 rows: 8 KB
+constexpr int kSlotBytes = 4 * kBoxBytes;  // a chunk: two boxes of hi, then two of lo
+constexpr int kSplitThreads = 256;  // the prologue's block: 32 x 8
+
+template <int HD>
+struct Cfg {  // byte offsets from the 1024-aligned base of dynamic smem
+  // hd 256 leaves room for the Q split of one consumer only.  Slots: as many
+  // 32 KB chunks as the rest of a block's shared memory takes
+  // (kernels/flash_attention.py:plan mirrors this).
+  static constexpr int consumers = HD == 256 ? 1 : 2;
+  static constexpr int bq = 64 * consumers;
+  static constexpr int threads = 128 * (1 + consumers);
+  static constexpr int slots = HD == 64 ? 5 : 3;
+  static constexpr int chunks = HD / kChunk;  // K chunks, then as many V^T chunks, per tile
+  static constexpr int q_bytes = bq * HD * 4;  // Q_hi; Q_lo follows it
+  static constexpr int slot_off = 2 * q_bytes;
+  static constexpr int bar_off = slot_off + slots * kSlotBytes;
+  static constexpr int n_bars = 1 + 2 * slots;  // Q, then full and empty per slot
+  static constexpr int bytes = 1024 + bar_off + 8 * n_bars;
+};
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero;
+// the low 13 bits are zero, so the tensor cores take the value exactly.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return __uint_as_float(y & 0xffffe000u);
+}
+
+// Waits until at most one group of products is still running.
+__device__ __forceinline__ void wgmma_wait_1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
+
+// D(64x64, f32) (+)= A(64x8) * B(64x8)^T in TF32: both operands K-major
+// (tf32 wgmma has no transposed form).
+// A and B in shared memory:
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+// A in registers (a0..a3: rows g and g + 8 of the warp's 16, columns t and
+// t + 4, g = lane / 4, t = lane % 4), B in shared memory:
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The prologue: K_hi, K_lo (B, Sk, KV, hd) and V^T_hi, V^T_lo (B, KV, hd,
+// Skp), Skp = Sk rounded up to 8, keys past Sk zero.  In V^T each group of 8
+// keys is stored in the order 0, 2, 4, 6, 1, 3, 5, 7, so that the score
+// accumulator's fragment (columns 2t, 2t + 1 of each 8) is the A fragment
+// (columns t, t + 4) of P V without a shuffle.  One block per (b, kv head)
+// x 32 keys x 32 columns, transposed through shared memory.
+__global__ void __launch_bounds__(kSplitThreads) flash_kv_split_tf32(
+    const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ khi,
+    float* __restrict__ klo, float* __restrict__ vthi, float* __restrict__ vtlo, int Sk, int KV,
+    int hd, int Skp) {
+  __shared__ float tile[32][33];
+  const int b = blockIdx.x / KV;
+  const int kvh = blockIdx.x - b * KV;
+  const int key0 = blockIdx.y * 32;
+  const int d0 = blockIdx.z * 32;
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  for (int i = ty; i < 32; i += kSplitThreads / 32) {
+    float x = 0.f;
+    if (key0 + i < Sk) {
+      const long long at = ((static_cast<long long>(b) * Sk + key0 + i) * KV + kvh) * hd + d0 + tx;
+      const float kx = k[at];
+      const float hi = tf32_rna(kx);
+      khi[at] = hi;
+      klo[at] = tf32_rna(kx - hi);  // kx - hi is exact
+      x = v[at];
+    }
+    tile[i][tx] = x;
+  }
+  __syncthreads();
+  if (key0 + tx >= Skp) return;
+  const int src = (tx & ~7) | ((tx & 3) << 1) | ((tx >> 2) & 1);  // key stored at tx
+  for (int i = ty; i < 32; i += kSplitThreads / 32) {
+    const float x = tile[src][i];
+    const float hi = tf32_rna(x);
+    const long long at = ((static_cast<long long>(b) * KV + kvh) * hd + d0 + i) * Skp + key0 + tx;
+    vthi[at] = hi;
+    vtlo[at] = tf32_rna(x - hi);
+  }
+}
+
+// Each warpgroup arrives once per slot it has consumed: lane 0 of each warp,
+// after that warp's wait for the products that read the slot.
+__device__ __forceinline__ void release(uint32_t bar_empty, int n, int slots, int lane) {
+  if (lane == 0) mbar_arrive(bar_empty + 8 * (n % slots));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(Cfg<HD>::threads, 1) flash_fwd_wgmma_f32(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_khi,
+    const __grid_constant__ CUtensorMap tm_klo, const __grid_constant__ CUtensorMap tm_vhi,
+    const __grid_constant__ CUtensorMap tm_vlo, float* __restrict__ o, int Sq, int Sk, int H,
+    int KV, int causal, int window, float cap, float scale, int kv_len) {
+  using C = Cfg<HD>;
+  constexpr int NS = C::slots;
+  constexpr int NC = C::chunks;
+  constexpr int BQ = C::bq;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle's period
+  const uint32_t q_hi = base, q_lo = base + C::q_bytes, slot0 = base + C::slot_off;
+  const uint32_t bar_q = base + C::bar_off;
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * NS;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal rows first
+
+  // The kv tiles these rows can see: n_tiles from k_first, kBK keys each.
+  const int k_live = min(kv_len, Sk);
+  int k_end = k_live;
+  if (causal) k_end = min(k_end, min(q0 + BQ, Sq));
+  const int k_first = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  const int n_tiles = k_end > k_first ? (k_end - k_first + kBK - 1) / kBK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 4 * C::consumers);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ------------------------------------------------------- producer
+    if constexpr (C::consumers == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, C::q_bytes);
+#pragma unroll
+      for (int g = 0; g < HD / kBox; ++g)
+        tma_load(q_hi + g * BQ * kBox * 4, &tm_q, bar_q, g * kBox, h, q0, b);
+      // Per kv tile NC chunks of K (64 head-dim columns of 64 keys), then NC
+      // of V^T (64 head-dim rows of 64 keys), each as hi and lo, in a ring
+      // of NS slots.
+      int n = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int k0 = k_first + t * kBK;
+        for (int part = 0; part < 2 * NC; ++part, ++n) {
+          const int s = n % NS;
+          if (n >= NS) mbar_wait(bar_empty + 8 * s, (n / NS - 1) & 1);  // its readers are done
+          const uint32_t dst = slot0 + s * kSlotBytes, full = bar_full + 8 * s;
+          mbar_expect_tx(full, kSlotBytes);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            if (part < NC) {
+              const int col = part * kChunk + j * kBox;
+              tma_load(dst + j * kBoxBytes, &tm_khi, full, col, kvh, k0, b);
+              tma_load(dst + (2 + j) * kBoxBytes, &tm_klo, full, col, kvh, k0, b);
+            } else {
+              const int drow = (part - NC) * kChunk;
+              tma_load(dst + j * kBoxBytes, &tm_vhi, full, k0 + j * kBox, drow, kvh, b);
+              tma_load(dst + (2 + j) * kBoxBytes, &tm_vlo, full, k0 + j * kBox, drow, kvh, b);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------- consumers
+    if constexpr (C::consumers == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int cw = wg - 1;  // which 64 rows of the tile
+    const int tid = threadIdx.x - 128 * wg;
+    const int lane = tid & 31;
+    const int quad = lane & 3;  // the 4 threads of a row differ in quad
+    const int r_lo = q0 + 64 * cw;  // this warpgroup's first row
+    // Accumulator fragment of wgmma m64n64: element i of a thread lies in row
+    // row + 8 * ((i >> 1) & 1) and column 8 * (i >> 2) + 2 * quad + (i & 1).
+    const int row = r_lo + 16 * (tid >> 5) + (lane >> 2);
+    const bool use_cap = cap > 0.f;
+    const float s_log2 = __fmul_rn(scale, tc::kLog2e);
+    const float cap_log2 = __fmul_rn(cap, tc::kLog2e);
+
+    // This warpgroup's 64 Q rows, as TMA wrote them (HD / 32 boxes of
+    // 128 B rows, 8-row groups 1024 B apart), split in place: Q_hi where Q
+    // was, Q_lo at the same offset after it.
+    const uint32_t q_rows = cw * 64 * kBox * 4;
+    mbar_wait(bar_q, 0);
+#pragma unroll 4
+    for (int i = tid; i < HD / kBox * 512; i += 128) {  // 16-byte pieces, 512 per box
+      const uint32_t at = (i / 512) * BQ * kBox * 4 + q_rows + (i % 512) * 16;
+      float4 x, hi, lo;
+      asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                   : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w) : "r"(q_hi + at));
+      hi = make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z), tf32_rna(x.w));
+      lo = make_float4(tf32_rna(x.x - hi.x), tf32_rna(x.y - hi.y), tf32_rna(x.z - hi.z),
+                       tf32_rna(x.w - hi.w));
+      asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(q_hi + at), "f"(hi.x),
+                   "f"(hi.y), "f"(hi.z), "f"(hi.w) : "memory");
+      asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(q_lo + at), "f"(lo.x),
+                   "f"(lo.y), "f"(lo.z), "f"(lo.w) : "memory");
+    }
+    // The products read shared memory through the async proxy: make the
+    // split visible to it, then wait for the whole warpgroup.
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + cw) : "memory");
+
+    float acc[NC][32];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+    float m[2] = {neg_inf(), neg_inf()};  // running max, in log2 units
+    float l[2] = {0.f, 0.f};              // this thread's share of the running sum
+
+    int n = 0;  // chunks consumed, in the producer's order
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k0 = k_first + t * kBK;
+
+      // S = Q K^T (64 x 64, float32) = Q_lo K_hi^T + Q_hi K_lo^T + Q_hi K_hi^T
+      // per k8 step, the small terms first; a chunk's slot is released once
+      // the next chunk's products are issued and its own have completed.
+      float x[kBK / 2];
+#pragma unroll
+      for (int c = 0; c < NC; ++c, ++n) {
+        const int s = n % NS;
+        mbar_wait(bar_full + 8 * s, (n / NS) & 1);
+        if (c == 0) {
+          wgmma_fence();
+          fence_regs(x);
+        }
+        const uint32_t kt = slot0 + s * kSlotBytes;
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 8; ++kk) {
+          const uint32_t off = (kk % 4) * 32;  // k8 step inside a 128 B row
+          const uint32_t qa = (2 * c + kk / 4) * BQ * kBox * 4 + q_rows + off;
+          const uint64_t a_hi = sw128_desc(q_hi + qa, 16, 1024);
+          const uint64_t a_lo = sw128_desc(q_lo + qa, 16, 1024);
+          const uint64_t b_hi = sw128_desc(kt + (kk / 4) * kBoxBytes + off, 16, 1024);
+          const uint64_t b_lo = sw128_desc(kt + (2 + kk / 4) * kBoxBytes + off, 16, 1024);
+          mma_ss(x, a_lo, b_hi, c > 0 || kk > 0);
+          mma_ss(x, a_hi, b_lo, 1);
+          mma_ss(x, a_hi, b_hi, 1);
+        }
+        wgmma_commit();
+        if (c > 0) {
+          wgmma_wait_1();
+          release(bar_empty, n - 1, NS, lane);
+        }
+      }
+      wgmma_wait_all();
+      fence_regs(x);
+      release(bar_empty, n - 1, NS, lane);
+
+      // Scale (then softcap), in log2 units.
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        if (use_cap)
+          x[i] = __fmul_rn(tanhf(__fdiv_rn(__fmul_rn(x[i], scale), cap)), cap_log2);
+        else
+          x[i] = __fmul_rn(x[i], s_log2);
+      }
+      // Masks, on tiles that cross an edge of this warpgroup's band only.
+      const bool edge = k0 + kBK > k_live || (causal && k0 + kBK - 1 > r_lo) ||
+                        (window > 0 && r_lo + 63 - k0 >= window);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < kBK / 2; ++i) {
+          const int kpos = k0 + 8 * (i >> 2) + 2 * quad + (i & 1);
+          const int qpos = row + 8 * ((i >> 1) & 1);
+          bool ok = kpos < k_live;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window > 0) ok = ok && qpos - kpos < window;
+          if (!ok) x[i] = neg_inf();
+        }
+      }
+
+      // Online softmax: rows row (e = 0) and row + 8 (e = 1).
+      float mx[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x[i]);
+      float r[2], base_e[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(kFull, mx[e], 1));
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(kFull, mx[e], 2));
+        const float m_new = fmaxf(m[e], mx[e]);
+        base_e[e] = m_new == neg_inf() ? 0.f : m_new;  // a row with no live key yet
+        r[e] = ex2(__fsub_rn(m[e], base_e[e]));
+        m[e] = m_new;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        x[i] = ex2(__fsub_rn(x[i], base_e[(i >> 1) & 1]));
+        sum[(i >> 1) & 1] = __fadd_rn(sum[(i >> 1) & 1], x[i]);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) l[e] = __fadd_rn(__fmul_rn(l[e], r[e]), sum[e]);
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[c][i] = __fmul_rn(acc[c][i], r[(i >> 1) & 1]);
+
+      // P split as the register A operand of k8 step j (keys 8 j .. 8 j + 7
+      // in V^T's order 0, 2, 4, 6, 1, 3, 5, 7): x[4j], x[4j + 2], x[4j + 1], x[4j + 3].
+      uint32_t p_hi[kBK / 8][4], p_lo[kBK / 8][4];
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        const float f[4] = {x[4 * j], x[4 * j + 2], x[4 * j + 1], x[4 * j + 3]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float hi = tf32_rna(f[e]);
+          p_hi[j][e] = __float_as_uint(hi);
+          p_lo[j][e] = __float_as_uint(tf32_rna(__fsub_rn(f[e], hi)));
+        }
+      }
+
+      // O += P_lo V_hi + P_hi V_lo + P_hi V_hi, 64 output columns a chunk.
+#pragma unroll
+      for (int c = 0; c < NC; ++c, ++n) {
+        const int s = n % NS;
+        mbar_wait(bar_full + 8 * s, (n / NS) & 1);
+        if (c == 0) {
+          wgmma_fence();
+#pragma unroll
+          for (int c2 = 0; c2 < NC; ++c2) fence_regs(acc[c2]);
+        }
+        const uint32_t vt = slot0 + s * kSlotBytes;
+#pragma unroll
+        for (int kk = 0; kk < kBK / 8; ++kk) {
+          const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+          const uint64_t b_hi = sw128_desc(vt + off, 16, 1024);
+          const uint64_t b_lo = sw128_desc(vt + 2 * kBoxBytes + off, 16, 1024);
+          mma_rs(acc[c], p_lo[kk], b_hi);
+          mma_rs(acc[c], p_hi[kk], b_lo);
+          mma_rs(acc[c], p_hi[kk], b_hi);
+        }
+        wgmma_commit();
+        if (c > 0) {
+          wgmma_wait_1();
+          release(bar_empty, n - 1, NS, lane);
+        }
+      }
+      wgmma_wait_all();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
+      release(bar_empty, n - 1, NS, lane);
+    }
+
+    // out = acc / max(l, 1e-30), rows below Sq only.
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      l[e] = __fadd_rn(l[e], __shfl_xor_sync(kFull, l[e], 1));
+      l[e] = __fadd_rn(l[e], __shfl_xor_sync(kFull, l[e], 2));
+      const float den = fmaxf(l[e], 1e-30f);
+      const int qpos = row + 8 * e;
+      if (qpos < Sq) {
+        float* dst = o + ((static_cast<long long>(b) * Sq + qpos) * H + h) * HD + 2 * quad;
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int j = 0; j < kChunk / 8; ++j)
+            *reinterpret_cast<float2*>(dst + kChunk * c + 8 * j) =
+                make_float2(__fdiv_rn(acc[c][4 * j + 2 * e], den),
+                            __fdiv_rn(acc[c][4 * j + 2 * e + 1], den));
+      }
+    }
+  }
+}
+
+// The 4-D tensor map of a contiguous float32 tensor of extents `dims`
+// (innermost first), in boxes of `box`, 128B-swizzled.
+int encode(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
+           const cuuint32_t (&box)[4]) {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess || p == nullptr)
+      return static_cast<int>(cudaErrorSymbolNotFound);
+    fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  const cuuint64_t strides[3] = {4 * dims[0], 4 * dims[0] * dims[1],
+                                 4 * dims[0] * dims[1] * dims[2]};  // bytes
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims,
+                          strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // zeros past each edge
+  return res == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(res);
+}
+
+template <int HD>
+int launch(const float* q, const float* k, const float* v, float* o, float* scratch, int B,
+           int Sq, int Sk, int H, int KV, int causal, int window, float cap, float scale,
+           int kv_len, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  static bool configured[kMaxDevices];  // one per instance: the smem attribute is set
+  static_assert(C::bytes <= 232448, "one CTA's shared memory on sm_90");
+  static_assert(2 * (C::bytes + 1024) > 233472, "two CTAs would share an SM's registers");
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!configured[device]) {
+    err = cudaFuncSetAttribute(flash_fwd_wgmma_f32<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured[device] = true;
+  }
+  CUtensorMap tm_q, tm_khi, tm_klo, tm_vhi, tm_vlo;
+  const cuuint64_t qh = static_cast<cuuint64_t>(HD);
+  int rc = encode(&tm_q, q, {qh, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(Sq),
+                             static_cast<cuuint64_t>(B)},
+                  {kBox, 1, static_cast<cuuint32_t>(C::bq), 1});
+  if (rc) return rc;
+  if (Sk > 0) {  // with no keys no kv tile is loaded: the maps stay unused
+    const int Skp = (Sk + 7) / 8 * 8;
+    const long long nk = static_cast<long long>(B) * Sk * KV * HD;
+    const long long nv = static_cast<long long>(B) * KV * HD * Skp;
+    float* khi = scratch;
+    float* klo = khi + nk;
+    float* vthi = klo + nk;
+    float* vtlo = vthi + nv;
+    const dim3 split_grid(B * KV, (Skp + 31) / 32, HD / 32);
+    flash_kv_split_tf32<<<split_grid, kSplitThreads, 0, stream>>>(k, v, khi, klo, vthi, vtlo,
+                                                                  Sk, KV, HD, Skp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    const cuuint64_t kdims[4] = {qh, static_cast<cuuint64_t>(KV), static_cast<cuuint64_t>(Sk),
+                                 static_cast<cuuint64_t>(B)};
+    const cuuint64_t vdims[4] = {static_cast<cuuint64_t>(Skp), qh, static_cast<cuuint64_t>(KV),
+                                 static_cast<cuuint64_t>(B)};
+    if ((rc = encode(&tm_khi, khi, kdims, {kBox, 1, kBK, 1}))) return rc;
+    if ((rc = encode(&tm_klo, klo, kdims, {kBox, 1, kBK, 1}))) return rc;
+    if ((rc = encode(&tm_vhi, vthi, vdims, {kBox, kChunk, 1, 1}))) return rc;
+    if ((rc = encode(&tm_vlo, vtlo, vdims, {kBox, kChunk, 1, 1}))) return rc;
+  } else {
+    tm_khi = tm_klo = tm_vhi = tm_vlo = tm_q;
+  }
+  const dim3 grid(B * H, (Sq + C::bq - 1) / C::bq);
+  flash_fwd_wgmma_f32<HD><<<grid, C::threads, C::bytes, stream>>>(
+      tm_q, tm_khi, tm_klo, tm_vhi, tm_vlo, o, Sq, Sk, H, KV, causal, window, cap, scale,
+      kv_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tf32
+
 }  // namespace
 
 // Launches the kernel on `stream`; returns a CUDA error code (0 = launched),
-// or 10000 + the CUresult where a bf16 tensor map could not be encoded.
+// or 10000 + the CUresult where a tensor map could not be encoded.
 // q (B,Sq,H,hd), k and v (B,Sk,KV,hd), o (B,Sq,H,hd): contiguous device
 // tensors of one type, float32 (dtype 0) or bfloat16 (dtype 1), aligned to
-// 16 bytes, with hd in {64, 128, 256} and H a multiple of KV.  The caller
-// checks all of this; B*H and Sq must be positive.
+// 16 bytes, with hd in {64, 128, 256} and H a multiple of KV.  In float32
+// `scratch` holds 2 B Sk KV hd + 2 B KV hd Skp floats (Skp = Sk rounded up
+// to 8; kernels/flash_attention.py:scratch_numel), which the prologue
+// overwrites; bf16 takes none.  The caller checks all of this; B*H and Sq
+// must be positive.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* o, int B, int Sq, int Sk, int H, int KV,
                                       int head_dim, int dtype, int causal, int window,
-                                      float cap, float scale, int kv_len, void* stream) {
+                                      float cap, float scale, int kv_len, void* scratch,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const float* qf = static_cast<const float*>(q);
     const float* kf = static_cast<const float*>(k);
     const float* vf = static_cast<const float*>(v);
     float* of = static_cast<float*>(o);
+    float* sc = static_cast<float*>(scratch);
     switch (head_dim) {
-      case 64: return simt::launch<64>(qf, kf, vf, of, B, Sq, Sk, H, KV, causal, window, cap, scale, kv_len, s);
-      case 128: return simt::launch<128>(qf, kf, vf, of, B, Sq, Sk, H, KV, causal, window, cap, scale, kv_len, s);
-      case 256: return simt::launch<256>(qf, kf, vf, of, B, Sq, Sk, H, KV, causal, window, cap, scale, kv_len, s);
+      case 64: return tf32::launch<64>(qf, kf, vf, of, sc, B, Sq, Sk, H, KV, causal, window, cap, scale, kv_len, s);
+      case 128: return tf32::launch<128>(qf, kf, vf, of, sc, B, Sq, Sk, H, KV, causal, window, cap, scale, kv_len, s);
+      case 256: return tf32::launch<256>(qf, kf, vf, of, sc, B, Sq, Sk, H, KV, causal, window, cap, scale, kv_len, s);
     }
   } else if (dtype == 1) {
     switch (head_dim) {

@@ -29,6 +29,7 @@ from typing import Dict, Iterable, Tuple
 HW = {
     "peak_flops": 989e12,  # bf16 FLOP/s per card, tensor cores, dense
     "peak_flops_f32": 67e12,  # float32 FLOP/s outside the tensor cores
+    "peak_flops_tf32": 495e12,  # TF32 FLOP/s per card, tensor cores, dense
     "hbm_bw": 3.35e12,  # bytes/s per card (HBM3)
     "nvlink_bw": 450e9,  # bytes/s each way per card (NVLink 4, all to all)
     "hbm_bytes": 80e9,  # device memory per card
