@@ -76,8 +76,18 @@ def serve(
     device=None,
     mesh=None,
     config: Optional[ModelConfig] = None,
+    prompts=None,
 ) -> Dict:
     """Serve ``n_requests`` random prompts in waves of ``batch``.
+
+    ``prompts`` (an (n, S) array of token ids) replaces them: n requests
+    of S tokens.  A wave's Chimbuko span ``serve/prefill`` ends when the
+    first tokens are on the host, and each ``serve/decode_step`` but the
+    last when its tokens are.  The result's ``per_request`` rows give
+    each request's ``rid``, ``queued_s`` (when its wave left the queue),
+    ``first_token_s`` and ``done_s`` (its last token on the host), in
+    seconds from serve's start on the program's clock
+    (``time.perf_counter``, the tracer's).
 
     ``device=None`` is the port's default device (``cuda:0``; raises
     without CUDA).  ``params`` (float32 master weights on ``device``, e.g.
@@ -89,6 +99,11 @@ def serve(
     device = resolve(device)
     cfg = config or (configs.smoke(arch) if smoke else configs.get_config(arch))
     assert not cfg.is_encoder, "decode serving needs a decoder arch"
+    if prompts is not None:
+        prompts = np.asarray(prompts, dtype=np.int32)
+        if prompts.ndim != 2:
+            raise ValueError(f"prompts is an (n, S) array of token ids, got {prompts.shape}")
+        n_requests, prompt_len = prompts.shape
     opts = StepOptions()
     ctx = make_shard_ctx(cfg, mesh, batch, opts)
     max_seq = prompt_len + max_new
@@ -107,38 +122,46 @@ def serve(
     monitor = monitor or ChimbukoMonitor(num_funcs=16, min_samples=8)
     tracer = Tracer(monitor.registry, rank=0)
 
-    rng = np.random.default_rng(seed)
-    pending = [
-        Request(i, rng.integers(0, cfg.vocab, prompt_len).astype(np.int32), max_new)
-        for i in range(n_requests)
-    ]
+    if prompts is None:
+        rng = np.random.default_rng(seed)
+        prompts = [rng.integers(0, cfg.vocab, prompt_len).astype(np.int32)
+                   for _ in range(n_requests)]
+    pending = [Request(i, prompt, max_new) for i, prompt in enumerate(prompts)]
     finished: List[Request] = []
+    rows: List[dict] = []
     step = 0
     t_start = time.perf_counter()
     tokens_out = 0
-    while pending or finished is None:
+    while pending:
         wave, pending = pending[:batch], pending[batch:]
-        if not wave:
-            break
+        t_wave = time.perf_counter() - t_start
         with tracer.span("serve/prefill"):
-            prompts = np.stack([r.prompt for r in wave])
+            wave_prompts = np.stack([r.prompt for r in wave])
             if len(wave) < batch:  # pad the wave to the batch
-                pad = np.tile(prompts[-1:], (batch - len(wave), 1))
-                prompts = np.concatenate([prompts, pad])
-            logits, cache = prefill_fn(params, {"tokens": torch.from_numpy(prompts).to(device)})
+                pad = np.tile(wave_prompts[-1:], (batch - len(wave), 1))
+                wave_prompts = np.concatenate([wave_prompts, pad])
+            logits, cache = prefill_fn(
+                params, {"tokens": torch.from_numpy(wave_prompts).to(device)})
             next_tok = _global_rows(ctx, torch.argmax(logits[:, -1], dim=-1), batch)
+            toks = next_tok.tolist()  # the first tokens on the host
+        t_first = t_toks = t_done = time.perf_counter() - t_start
         for t in range(max_new):
             t0 = time.perf_counter()
             with tracer.span("serve/decode_step"):
-                # One device sync per step for the whole wave's tokens.
-                toks = next_tok.tolist()
                 for i, r in enumerate(wave):
                     r.out.append(toks[i])
                 tokens_out += len(wave)
+                t_done = t_toks  # when the tokens just appended reached the host
+                # the last step's decode, as JAX's loop runs it, gives no token
                 logits, cache = decode_fn(params, cache, next_tok[:, None].to(torch.int32))
                 next_tok = _global_rows(ctx, torch.argmax(logits[:, 0], dim=-1), batch)
+                if t + 1 < max_new:
+                    toks = next_tok.tolist()  # one device sync a step for the wave's tokens
+                    t_toks = time.perf_counter() - t_start
             monitor.record_step_times(step, {0: time.perf_counter() - t0})
             step += 1
+        rows += [dict(rid=r.rid, queued_s=t_wave, first_token_s=t_first, done_s=t_done)
+                 for r in wave]
         finished.extend(wave)
         monitor.ingest(tracer.drain(step))
     dt = time.perf_counter() - t_start
@@ -148,6 +171,7 @@ def serve(
         "tok_per_s": tokens_out / dt if dt > 0 else 0.0,
         "monitor": monitor.summary(),
         "samples": [r.out[:8] for r in finished[:3]],
+        "per_request": rows,
     }
     if own_monitor:
         monitor.close()

@@ -27,8 +27,11 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..telemetry.selftrace import get_self_tracer
 from . import layers as L
 from .common import ModelConfig
+
+_TRACER = get_self_tracer()  # spans mamba/prefill and mamba/stage
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -290,23 +293,25 @@ def mamba_prefill(
     the scan is ``mamba_sequence``'s chunked plain scan instead (the dry
     run: no kernel takes meta tensors), which gives y and the state too.
     """
-    K = cfg.ssm_d_conv
-    xz = u @ p["in_proj"]
-    x, z = xz.chunk(2, dim=-1)
-    tail = x[:, -(K - 1):]  # copied: a view would keep all of xz alive
-    conv = F.pad(tail, (0, 0, K - 1 - tail.shape[1], 0)) if tail.shape[1] < K - 1 \
-        else tail.clone()
-    x = L.silu(causal_conv1d(x, p["conv_w"], p["conv_b"]))
-    dt, Bm, Cm, A = _project(p, x, cfg)
-    if chunk is not None:
-        y, h = _ssm_scan_fused(dt, x, Bm, Cm, A, chunk=chunk)
-        # copied: h is a view of the last chunk's (B,Lc,di,st) states, which
-        # the cache would otherwise keep alive (268 MB a layer at 4 x 1024)
-        return _output(p, y, x, z, u.dtype), {"h": h.clone(), "conv": conv}
-    a, b = _scan_elements(dt, x, Bm, A)
-    y, h = ops.mamba_scan(a, b, Cm.float())
-    del a, b
-    return _output(p, y, x, z, u.dtype), {"h": h, "conv": conv}
+    with _TRACER.span("mamba/prefill"):
+        K = cfg.ssm_d_conv
+        xz = u @ p["in_proj"]
+        x, z = xz.chunk(2, dim=-1)
+        tail = x[:, -(K - 1):]  # copied: a view would keep all of xz alive
+        conv = F.pad(tail, (0, 0, K - 1 - tail.shape[1], 0)) if tail.shape[1] < K - 1 \
+            else tail.clone()
+        x = L.silu(causal_conv1d(x, p["conv_w"], p["conv_b"]))
+        dt, Bm, Cm, A = _project(p, x, cfg)
+        if chunk is not None:
+            y, h = _ssm_scan_fused(dt, x, Bm, Cm, A, chunk=chunk)
+            # copied: h is a view of the last chunk's (B,Lc,di,st) states, which
+            # the cache would otherwise keep alive (268 MB a layer at 4 x 1024)
+            return _output(p, y, x, z, u.dtype), {"h": h.clone(), "conv": conv}
+        with _TRACER.span("mamba/stage"):
+            a, b = _scan_elements(dt, x, Bm, A)
+        y, h = ops.mamba_scan(a, b, Cm.float())
+        del a, b
+        return _output(p, y, x, z, u.dtype), {"h": h, "conv": conv}
 
 
 def mamba_decode(

@@ -52,11 +52,14 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
 from ..kernels import ops
+from ..telemetry.selftrace import get_self_tracer
 from . import collectives as C
 from . import layers as L
 from . import mamba as MB
 from .common import MAMBA, MLA, MOE, NONE, SWA, LayerSpec, ModelConfig
 from .moe import EXPERT_KEYS, EPInfo, moe_block
+
+_TRACER = get_self_tracer()  # spans model/prefill, model/decode_step and the decode mixers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -945,25 +948,33 @@ def decode_block(cfg, spec, p, x, cache, pos: int, cos, sin, ctx: ShardCtx = Sha
     of its global slots, from ``max_seq``), and Mamba the tensor-parallel
     decode wherever its state is split over d_inner (:func:`_state_split`)."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    sharded = ctx.mesh is not None and spec.mixer != MAMBA and \
-        _seq_sharded(ctx, _cache_len(cfg, spec, max_seq))
-    if spec.mixer == MAMBA and _state_split(cfg, ctx):
-        h = MB.mamba_decode_tp(p, h, cache, cfg, ctx.model_rank, ctx.tp, ctx.psum)
-    elif spec.mixer == MAMBA:
-        h, _ = MB.mamba_decode(p, h, cache, cfg)
-    elif spec.mixer == MLA and sharded:
-        q_eff, q_rope, ckv_new, krope_new = mla_decode_query(cfg, p, h, cos, sin)
-        lat = _mla_decode_sharded(cfg, p, q_eff, q_rope, ckv_new, krope_new, cache, pos, ctx)
-        h = mla_latent_out(cfg, p, lat, h.dtype)
-    elif spec.mixer == MLA:
-        h = _mla_decode(cfg, p, h, cache, pos, cos, sin)
-    elif sharded:
-        q, k, v = _qkv(cfg, p, h, cos, sin)
-        h = _attn_decode_sharded(cfg, spec, p, q, k, v, cache, pos, ctx) @ p["wo"]
+    if spec.mixer == MAMBA:
+        with _TRACER.span("mamba/decode"):
+            if _state_split(cfg, ctx):
+                h = MB.mamba_decode_tp(p, h, cache, cfg, ctx.model_rank, ctx.tp, ctx.psum)
+            else:
+                h, _ = MB.mamba_decode(p, h, cache, cfg)
     else:
-        h = _attn_decode(cfg, spec, p, h, cache, pos, cos, sin)
+        with _TRACER.span("attention/decode"):
+            h = _attention_decode(cfg, spec, p, h, cache, pos, cos, sin, ctx, max_seq)
     x = _mixer_residual(cfg, x, h, p)
     return _mlp_residual(cfg, spec, p, x, ctx)
+
+
+def _attention_decode(cfg, spec, p, h, cache, pos: int, cos, sin, ctx: ShardCtx,
+                      max_seq: Optional[int]):
+    """decode_block's attention mixer (MLA or not, sharded or not)."""
+    sharded = ctx.mesh is not None and _seq_sharded(ctx, _cache_len(cfg, spec, max_seq))
+    if spec.mixer == MLA and sharded:
+        q_eff, q_rope, ckv_new, krope_new = mla_decode_query(cfg, p, h, cos, sin)
+        lat = _mla_decode_sharded(cfg, p, q_eff, q_rope, ckv_new, krope_new, cache, pos, ctx)
+        return mla_latent_out(cfg, p, lat, h.dtype)
+    if spec.mixer == MLA:
+        return _mla_decode(cfg, p, h, cache, pos, cos, sin)
+    if sharded:
+        q, k, v = _qkv(cfg, p, h, cos, sin)
+        return _attn_decode_sharded(cfg, spec, p, q, k, v, cache, pos, ctx) @ p["wo"]
+    return _attn_decode(cfg, spec, p, h, cache, pos, cos, sin)
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
@@ -976,27 +987,28 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
     cache the rank's blocks (:func:`init_cache`, :func:`prefill`), and the
     logits the rank's rows; ``params`` may be placed.
     """
-    pos = int(cache["pos"])
-    max_seq = cache.get("max_seq")
-    if ctx.mesh is not None:
-        if max_seq is None:
-            raise ValueError("a decode step on a mesh takes the rank's cache blocks "
-                             "(init_cache or prefill with the mesh's ShardCtx)")
-        ctx = ctx.for_pass(tokens.shape[0], 1)
-        tokens = _rank_rows(ctx, "tokens", tokens, tokens.shape[0])
-    top = _gathered_top(params)
-    x = embed_tokens(cfg, top, {"tokens": tokens})
-    B = x.shape[0]
-    # M-RoPE: t = h = w = pos, as JAX decodes, also after a prefill whose
-    # pos3 continued the text from the visual grid's rows
-    shape = (3, B, 1) if cfg.pos == "mrope" else (B, 1)
-    positions = torch.full(shape, pos, dtype=torch.int32, device=x.device)
-    cos, sin = _rope_cos_sin(cfg, positions, cfg.qk_dim)
-    for period, i, spec, p in _serving_layers(cfg, params, ctx):
-        c = {name: t[period] for name, t in cache["layers"][i].items()}
-        x = decode_block(cfg, spec, p, x, c, pos, cos, sin, ctx, max_seq)
-    logits = unembed(cfg, top, x)
-    return logits, {**cache, "pos": pos + 1}
+    with _TRACER.span("model/decode_step"):
+        pos = int(cache["pos"])
+        max_seq = cache.get("max_seq")
+        if ctx.mesh is not None:
+            if max_seq is None:
+                raise ValueError("a decode step on a mesh takes the rank's cache blocks "
+                                 "(init_cache or prefill with the mesh's ShardCtx)")
+            ctx = ctx.for_pass(tokens.shape[0], 1)
+            tokens = _rank_rows(ctx, "tokens", tokens, tokens.shape[0])
+        top = _gathered_top(params)
+        x = embed_tokens(cfg, top, {"tokens": tokens})
+        B = x.shape[0]
+        # M-RoPE: t = h = w = pos, as JAX decodes, also after a prefill whose
+        # pos3 continued the text from the visual grid's rows
+        shape = (3, B, 1) if cfg.pos == "mrope" else (B, 1)
+        positions = torch.full(shape, pos, dtype=torch.int32, device=x.device)
+        cos, sin = _rope_cos_sin(cfg, positions, cfg.qk_dim)
+        for period, i, spec, p in _serving_layers(cfg, params, ctx):
+            c = {name: t[period] for name, t in cache["layers"][i].items()}
+            x = decode_block(cfg, spec, p, x, c, pos, cos, sin, ctx, max_seq)
+        logits = unembed(cfg, top, x)
+        return logits, {**cache, "pos": pos + 1}
 
 
 def _expand_layer_cache(cfg: ModelConfig, spec: LayerSpec, c, S: int, max_seq: int):
@@ -1050,45 +1062,46 @@ def prefill(cfg: ModelConfig, params, batch, ctx: ShardCtx = ShardCtx(),
     the gathered latents), and a Mamba layer the sequence-parallel mixer,
     whose prefix combine carried one rank further gives the state.
     """
-    _check_compute(cfg, params)
-    top = _gathered_top(params)
-    x, cos, sin, ctx = _inputs(cfg, top["embed"], batch, ctx)
-    S = x.shape[1] * (ctx.tp if ctx.seq_shard else 1)
-    per_pos: List[Dict[str, List[torch.Tensor]]] = [{} for _ in cfg.layout]
-    for _, i, spec, p in _serving_layers(cfg, params, ctx):
-        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        if spec.mixer == MAMBA and ctx.seq_shard:
-            h, cch = MB.mamba_mixer_seq_parallel(
-                p, h, cfg, ctx, chunk=ctx.mamba_chunk(S // ctx.tp), with_state=True)
-        elif spec.mixer == MAMBA:
-            h, cch = MB.mamba_prefill(p, h, cfg, chunk=None if ctx.kernels
-                                      else ctx.mamba_chunk(S))
-        elif spec.mixer == MLA:
-            h, (ckv, krope) = _mla_seq_with_cache(cfg, p, h, cos, sin, ctx)
-            cch = {"ckv": ckv, "krope": krope}
-        else:
-            h, (k, v) = _attn_seq_with_cache(cfg, spec, p, h, cos, sin, ctx)
-            if spec.mixer == SWA:
-                w = min(cfg.window, S)
-                k, v = k[:, -w:], v[:, -w:]
-                kpos = torch.arange(S - w, S, dtype=torch.int32, device=x.device)
+    with _TRACER.span("model/prefill", timed_on=params["embed"]):
+        _check_compute(cfg, params)
+        top = _gathered_top(params)
+        x, cos, sin, ctx = _inputs(cfg, top["embed"], batch, ctx)
+        S = x.shape[1] * (ctx.tp if ctx.seq_shard else 1)
+        per_pos: List[Dict[str, List[torch.Tensor]]] = [{} for _ in cfg.layout]
+        for _, i, spec, p in _serving_layers(cfg, params, ctx):
+            h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+            if spec.mixer == MAMBA and ctx.seq_shard:
+                h, cch = MB.mamba_mixer_seq_parallel(
+                    p, h, cfg, ctx, chunk=ctx.mamba_chunk(S // ctx.tp), with_state=True)
+            elif spec.mixer == MAMBA:
+                h, cch = MB.mamba_prefill(p, h, cfg, chunk=None if ctx.kernels
+                                          else ctx.mamba_chunk(S))
+            elif spec.mixer == MLA:
+                h, (ckv, krope) = _mla_seq_with_cache(cfg, p, h, cos, sin, ctx)
+                cch = {"ckv": ckv, "krope": krope}
             else:
-                kpos = torch.arange(S, dtype=torch.int32, device=x.device)
-            cch = {"k": k, "v": v, "kpos": kpos}
-        x = _mixer_residual(cfg, x, h, p)
-        x = _mlp_residual(cfg, spec, p, x, ctx)
-        cch = {name: t[None] for name, t in cch.items()}  # a period axis of 1
-        if max_seq is not None and max_seq != S:
-            cch = _expand_layer_cache(cfg, spec, cch, S, max_seq)
-        for name, t in cch.items():
-            per_pos[i].setdefault(name, []).append(_cache_block(ctx, name, t)[0])
-    # stacked a leaf at a time, each leaf's layers freed as it goes
-    layer_caches = [{name: torch.stack(c.pop(name)) for name in list(c)} for c in per_pos]
-    last = x[:, -1:]
-    if ctx.seq_shard:  # the last position lives on the last model rank
-        last = ctx.all_gather(last)[-1]
-    logits = unembed(cfg, top, last)
-    cache = {"pos": S, "layers": layer_caches}
-    if ctx.mesh is None:
-        return logits, cache
-    return logits, {**cache, "max_seq": S if max_seq is None else max_seq}
+                h, (k, v) = _attn_seq_with_cache(cfg, spec, p, h, cos, sin, ctx)
+                if spec.mixer == SWA:
+                    w = min(cfg.window, S)
+                    k, v = k[:, -w:], v[:, -w:]
+                    kpos = torch.arange(S - w, S, dtype=torch.int32, device=x.device)
+                else:
+                    kpos = torch.arange(S, dtype=torch.int32, device=x.device)
+                cch = {"k": k, "v": v, "kpos": kpos}
+            x = _mixer_residual(cfg, x, h, p)
+            x = _mlp_residual(cfg, spec, p, x, ctx)
+            cch = {name: t[None] for name, t in cch.items()}  # a period axis of 1
+            if max_seq is not None and max_seq != S:
+                cch = _expand_layer_cache(cfg, spec, cch, S, max_seq)
+            for name, t in cch.items():
+                per_pos[i].setdefault(name, []).append(_cache_block(ctx, name, t)[0])
+        # stacked a leaf at a time, each leaf's layers freed as it goes
+        layer_caches = [{name: torch.stack(c.pop(name)) for name in list(c)} for c in per_pos]
+        last = x[:, -1:]
+        if ctx.seq_shard:  # the last position lives on the last model rank
+            last = ctx.all_gather(last)[-1]
+        logits = unembed(cfg, top, last)
+        cache = {"pos": S, "layers": layer_caches}
+        if ctx.mesh is None:
+            return logits, cache
+        return logits, {**cache, "max_seq": S if max_seq is None else max_seq}

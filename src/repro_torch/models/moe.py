@@ -38,9 +38,12 @@ from typing import Dict, Optional
 
 import torch
 
+from ..telemetry.selftrace import get_self_tracer
 from . import collectives as C
 from . import layers as L
 from .common import ModelConfig
+
+_TRACER = get_self_tracer()  # span moe, with its kept pairs and its slots
 
 KEYS = ("router", "moe_gate", "moe_up", "moe_down")  # the layer weights moe_block reads
 EXPERT_KEYS = KEYS[1:]  # split over the expert axis
@@ -111,51 +114,54 @@ def moe_local(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     without expert parallelism).  The routing and the capacity are those
     of all E experts over x's N tokens; a pair routed elsewhere, or past
     its expert's capacity, adds 0."""
-    B, S, D = x.shape
-    E, k = cfg.moe_experts, cfg.moe_topk
-    e_loc = p["moe_gate"].shape[0]
-    N = B * S
-    xt = x.reshape(N, D)
+    with _TRACER.span("moe") as span:
+        B, S, D = x.shape
+        E, k = cfg.moe_experts, cfg.moe_topk
+        e_loc = p["moe_gate"].shape[0]
+        N = B * S
+        xt = x.reshape(N, D)
 
-    # --- routing ------------------------------------------------------------
-    _, weights, ids = _route(p, xt, k)
-    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
-    C = capacity(cfg, N)
+        # --- routing ------------------------------------------------------------
+        _, weights, ids = _route(p, xt, k)
+        weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+        C = capacity(cfg, N)
 
-    # --- sort-based dispatch ------------------------------------------------
-    flat_ids = ids.reshape(-1)  # (N*k,), token-major
-    flat_tok = torch.arange(N * k, device=x.device) // k
-    order = torch.argsort(flat_ids, stable=True)
-    s_ids = flat_ids[order]
-    s_tok = flat_tok[order]
-    s_w = weights.reshape(-1)[order]
-    pos = _positions_in_run(s_ids)
-    local_e = s_ids - offset
-    owned = pos < C
-    if e_loc != E:
-        owned = owned & (local_e >= 0) & (local_e < e_loc)
-    sink = e_loc * C  # one row past the real slots takes every dropped pair
-    slot = torch.where(owned, local_e * C + pos, sink)
-    buf = x.new_zeros((sink + 1, D)).index_put((slot,), xt[s_tok])
-    buf = buf[:sink].reshape(e_loc, C, D)
+        # --- sort-based dispatch ------------------------------------------------
+        flat_ids = ids.reshape(-1)  # (N*k,), token-major
+        flat_tok = torch.arange(N * k, device=x.device) // k
+        order = torch.argsort(flat_ids, stable=True)
+        s_ids = flat_ids[order]
+        s_tok = flat_tok[order]
+        s_w = weights.reshape(-1)[order]
+        pos = _positions_in_run(s_ids)
+        local_e = s_ids - offset
+        owned = pos < C
+        if e_loc != E:
+            owned = owned & (local_e >= 0) & (local_e < e_loc)
+        sink = e_loc * C  # one row past the real slots takes every dropped pair
+        slot = torch.where(owned, local_e * C + pos, sink)
+        if span:  # counts read when the spans are read: the pairs kept, the e·C slots
+            span.set(kept=owned.sum(), slots=sink)
+        buf = x.new_zeros((sink + 1, D)).index_put((slot,), xt[s_tok])
+        buf = buf[:sink].reshape(e_loc, C, D)
 
-    # --- expert FFN (batched GEMMs over experts) ----------------------------
-    act = L.gelu_tanh if cfg.activation == "geglu" else L.silu
-    h = act(torch.bmm(buf, p["moe_gate"])) * torch.bmm(buf, p["moe_up"])
-    y_buf = torch.bmm(h, p["moe_down"]).reshape(sink, D)
+        # --- expert FFN (batched GEMMs over experts) ----------------------------
+        act = L.gelu_tanh if cfg.activation == "geglu" else L.silu
+        h = act(torch.bmm(buf, p["moe_gate"])) * torch.bmm(buf, p["moe_up"])
+        y_buf = torch.bmm(h, p["moe_down"]).reshape(sink, D)
 
-    # --- combine: gather back, weight, add per token in expert order --------
-    y_buf = torch.cat([y_buf, y_buf.new_zeros((1, D))])  # the sink reads 0
-    contrib = y_buf[slot] * (s_w * owned).to(x.dtype)[:, None]
-    # the sorted position of each (token, j): the stable sort keeps a
-    # token's pairs in ascending expert id, the order XLA adds them in
-    at = torch.empty_like(order)
-    at[order] = torch.arange(N * k, device=x.device)
-    at = torch.sort(at.view(N, k), dim=-1).values
-    out = contrib[at[:, 0]]
-    for j in range(1, k):
-        out = out + contrib[at[:, j]]
-    return out.reshape(B, S, D)
+        # --- combine: gather back, weight, add per token in expert order --------
+        y_buf = torch.cat([y_buf, y_buf.new_zeros((1, D))])  # the sink reads 0
+        contrib = y_buf[slot] * (s_w * owned).to(x.dtype)[:, None]
+        # the sorted position of each (token, j): the stable sort keeps a
+        # token's pairs in ascending expert id, the order XLA adds them in
+        at = torch.empty_like(order)
+        at[order] = torch.arange(N * k, device=x.device)
+        at = torch.sort(at.view(N, k), dim=-1).values
+        out = contrib[at[:, 0]]
+        for j in range(1, k):
+            out = out + contrib[at[:, j]]
+        return out.reshape(B, S, D)
 
 
 def moe_aux_loss(

@@ -731,7 +731,7 @@ class RPCServer(EventLoopServer):
                     t0 = time.perf_counter_ns()
                     reply = _run_method(name, fn, frame)
                     self._observe_rpc(name, t0, reply)
-                    if self._selftrace.enabled:
+                    if self._selftrace.recording:
                         self._selftrace.record(
                             f"rpc:{name}", t0 // 1000,
                             (time.perf_counter_ns() - t0) // 1000,
@@ -756,7 +756,7 @@ class RPCServer(EventLoopServer):
             t0 = time.perf_counter_ns()
             reply = _run_method(name, fn, frame, kind="worker")
             self._observe_rpc(name, t0, reply)
-            if self._selftrace.enabled:
+            if self._selftrace.recording:
                 self._selftrace.record(
                     f"rpc.heavy:{name}", t0 // 1000,
                     (time.perf_counter_ns() - t0) // 1000,

@@ -32,7 +32,8 @@ _INGEST_STAGES = ("ad", "reduce", "ps", "prov", "write", "publish")
 
 class _StageTimer:
     """Per-frame stage clock: marks observe the stage histogram and, when
-    self-tracing, record the stage as a span."""
+    the self-tracer records (``SelfTracer.recording``), record the stage
+    as a span ``ingest:<stage>``."""
 
     __slots__ = ("_hists", "_tracer", "_last")
 
@@ -275,7 +276,7 @@ class ChimbukoMonitor:
         if telemetry.ENABLED:
             timer = _StageTimer(
                 self._m_stage,
-                self._selftrace if self._selftrace.enabled else None,
+                self._selftrace if self._selftrace.recording else None,
             )
         else:
             timer = _NULL_TIMER
@@ -358,20 +359,21 @@ class ChimbukoMonitor:
         self, step: int, times_by_rank: Dict[int, float]
     ) -> List[StragglerEvent]:
         """Detect per-rank step-time outliers against the running profile."""
-        out: List[StragglerEvent] = []
-        xs = np.asarray(list(times_by_rank.values()), np.float64)
-        mu, sd = self._stime.mean, self._stime.std
-        if self._stime.n >= self._s_min and sd > 0:
-            for rank, t in times_by_rank.items():
-                z = (t - mu) / sd
-                if z > self._s_alpha:
-                    ev = StragglerEvent(step, rank, t, float(z))
-                    out.append(ev)
-                    self.stragglers.append(ev)
-                    for cb in self._mitigations:
-                        cb(ev)
-        self._stime.push_batch(xs)
-        return out
+        with self._selftrace.span("monitor/record_step_times"):
+            out: List[StragglerEvent] = []
+            xs = np.asarray(list(times_by_rank.values()), np.float64)
+            mu, sd = self._stime.mean, self._stime.std
+            if self._stime.n >= self._s_min and sd > 0:
+                for rank, t in times_by_rank.items():
+                    z = (t - mu) / sd
+                    if z > self._s_alpha:
+                        ev = StragglerEvent(step, rank, t, float(z))
+                        out.append(ev)
+                        self.stragglers.append(ev)
+                        for cb in self._mitigations:
+                            cb(ev)
+            self._stime.push_batch(xs)
+            return out
 
     # -------------------------------------------------------------- report
     def reduction_stats(self):
