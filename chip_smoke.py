@@ -49,6 +49,14 @@ non-zero):
            random shapes and the full-width falcon-mamba-7b prefill shape
            (B 4, S 1024, d_inner 8192, d_state 16), with a determinism check
            and timings;
+  stage    the staging kernel (a = exp(dt*A), b = (dt*x)*B) bitwise against
+           the plain staging (kernels.ref.mamba_stage_ref) on the card at
+           falcon-mamba-7b's and jamba's layer shapes cut to B 2, path D's
+           wave (B 4, S 1024), jamba's serving wave (B 4, S 4096) and
+           falcon-mamba-7b's (B 32, S 1024), ragged d_inner, S 1, d_state
+           1, 5, 8 and 32, bf16 and float32; timed at falcon-mamba-7b's
+           serving wave against its byte bound and against the plain
+           staging;
   serve    main path C: repro_torch.launch.serve at gemma-2b's published
            width (8 requests of 1024 prompt tokens, 32 new tokens each, in
            waves of 4) with the port's ChimbukoMonitor; then the float32
@@ -62,7 +70,7 @@ non-zero):
            at float32's smoke tolerance, ms per wave;
   serve_ssm  main path D: the same traffic and checks on falcon-mamba-7b at
            its published width (64 Mamba layers, no attention), whose every
-           prefill layer runs the scan kernel;
+           prefill layer runs the staging and the scan kernels;
   serve_moe  main path G: the same traffic on granite-moe-1b-a400m at its
            published width (24 layers, 32 experts, top-8; flash at hd 64)
            under a monitor with the live viz gateway (viz_serve=0), a
@@ -273,6 +281,16 @@ SCAN_SWEEP = 40  # random shapes: batch, ragged S and d_inner, every d_state up 
 SCAN_FULL = (4, 1024, 8192, 16)  # falcon-mamba-7b prefill wave: B, S, d_inner, d_state
 SCAN_TOL = 1e-5  # tests/test_kernels.py:133-134
 SCAN_OPS_PER_STATE = 4  # h = a*h + b (2), h*C and its share of the sum over st (2)
+STAGE_CASES = [  # (B, S, d_inner, d_state, compute dtype): bitwise against the plain staging
+    (2, 1024, 8192, 16, "bfloat16"), (2, 4096, 8192, 16, "bfloat16"),  # falcon-mamba, jamba
+    (4, 1024, 8192, 16, "bfloat16"),  # path D's wave
+    (4, 4096, 8192, 16, "bfloat16"),  # jamba's serving wave (perfbench's doc-4k): 2.1e9 elements
+    (2, 1024, 8192, 16, "float32"), (2, 33, 50, 16, "bfloat16"), (3, 1, 64, 16, "bfloat16"),
+    (1, 20, 9, 1, "bfloat16"), (2, 12, 5, 5, "float32"), (2, 7, 24, 8, "float32"),
+    (1, 12, 5, 32, "bfloat16")]
+STAGE_FULL = (32, 1024, 8192, 16)  # falcon-mamba-7b's serving wave (perfbench's score-1k):
+# 4.3e9 elements, bitwise too
+STAGE_EQUAL_CHUNK = 2**28  # elements compared at a time (the full wave's a alone is 17 GB)
 SERVE = dict(n_requests=8, batch=4, prompt_len=1024, max_new=32)
 # Path O: the float32 flash instance inside a model: gemma-2b at its
 # published width with compute_dtype float32 (TF32 off), path C's two waves
@@ -438,9 +456,11 @@ def _wrappers() -> dict:
     """Each kernel's wrapper module, by kernel name."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import mamba_stage as mst
     from repro_torch.kernels import moments as mo
 
-    return {"moments_and_labels": mo, "flash_attention": fa, "mamba_scan": ms}
+    return {"moments_and_labels": mo, "flash_attention": fa, "mamba_scan": ms,
+            "mamba_stage": mst}
 
 
 def zero_counts() -> None:
@@ -484,7 +504,8 @@ def host_ms(fn, iters: int) -> float:
 
 # The name torch.profiler gives each kernel of the port, by wrapper count.
 PROFILER_NAMES = {"moments_and_labels": ("moments_cluster",),
-                  "flash_attention": ("flash_fwd",), "mamba_scan": ("mamba_scan_fwd",)}
+                  "flash_attention": ("flash_fwd",), "mamba_scan": ("mamba_scan_fwd",),
+                  "mamba_stage": ("mamba_stage_ab",)}
 
 
 def _profile(fn, calls: int):
@@ -508,21 +529,32 @@ def _profile(fn, calls: int):
             wall_ms = (time.perf_counter() - t0) * 1e3
             launched = {k: v - before[k] for k, v in read_counts().items()}
             prof.step()
-    by_kernel = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        if us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA") and \
-                not ev.key.startswith("ProfilerStep"):  # the schedule's own range, no kernel
-            ms, n = by_kernel.get(ev.key[:120], (0.0, 0))
-            by_kernel[ev.key[:120]] = (ms + us / 1e3, n + ev.count)
+    by_kernel = kernel_times(prof.key_averages())
     ops = sum(1 for e in prof.events() if e.name.startswith("aten::") and not (
         e.cpu_parent is not None and e.cpu_parent.name.startswith("aten::")))
     # host waits on the device: every *Synchronize call but the cycle's own
     # two (the profiler adds one more of its own: a path that never waits reads 1)
     syncs = sum(1 for e in prof.events() if "Synchronize" in e.name) - 2
     return by_kernel, wall_ms, launched, (ops / calls, syncs / calls)
+
+
+def kernel_times(averages) -> dict:
+    """{kernel name[:120]: (device ms, launches)} from the profiler's
+    ``key_averages()``: device events only, without the schedule's own
+    range and without the device-side copies of the program's
+    record_function ranges (user annotations), which span kernels and would
+    count their time twice."""
+    by_kernel = {}
+    for ev in averages:
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA") and \
+                not getattr(ev, "is_user_annotation", False) and \
+                not ev.key.startswith("ProfilerStep"):
+            ms, n = by_kernel.get(ev.key[:120], (0.0, 0))
+            by_kernel[ev.key[:120]] = (ms + us / 1e3, n + ev.count)
+    return by_kernel
 
 
 def _lost_launches(by_kernel, calls, launched) -> str:
@@ -1426,6 +1458,98 @@ def phase_scan(dev, agree: OutputAgreement) -> dict:
     return timing
 
 
+# -------------------------------------------------------------------- stage
+def stage_bound(shape, item_bytes: int) -> dict:
+    """The least time for one staging call at ``shape``: dt and x (B,S,di)
+    and B (B,S,st) in the compute dtype (``item_bytes`` each) and A (di,st)
+    float32 read once, a and b (B,S,di,st) float32 written once, over the
+    memory rate (its exps and products take a fraction of that)."""
+    B, S, di, st = shape
+    nbytes = item_bytes * (2 * B * S * di + B * S * st) + 4 * (di * st + 2 * B * S * di * st)
+    return {"bytes": nbytes, "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def stage_equal(tag: str, got, want) -> None:
+    """Raise unless the staged a and b ``got`` equal ``want`` bit for bit,
+    compared STAGE_EQUAL_CHUNK elements at a time, so that the check itself
+    allocates little beside tensors of 17 GB."""
+    import torch
+
+    for name, g, w in zip("ab", got, want):
+        if g.shape != w.shape:
+            raise AssertionError(f"{tag}: {name} is {tuple(g.shape)}, the plain {tuple(w.shape)}")
+        gi, wi = g.view(torch.int32).reshape(-1), w.view(torch.int32).reshape(-1)
+        bad, ulp = 0, 0
+        for i in range(0, gi.numel(), STAGE_EQUAL_CHUNK):
+            gc_, wc_ = gi[i:i + STAGE_EQUAL_CHUNK], wi[i:i + STAGE_EQUAL_CHUNK]
+            if not torch.equal(gc_, wc_):
+                bad += int((gc_ != wc_).sum())
+                ulp = max(ulp, int((gc_.long() - wc_.long()).abs().max()))
+        if bad:
+            raise AssertionError(f"{tag}: {name} differs from the plain staging in {bad} "
+                                 f"elements, by at most {ulp} ulp")
+
+
+def phase_stage(dev) -> dict:
+    """The staging kernel bitwise against the plain staging at STAGE_CASES
+    and at STAGE_FULL; at STAGE_FULL in bf16 its time (CUDA events), device
+    time (torch.profiler, launches held against the wrapper's count) and
+    host enqueue beside its byte bound, and the plain staging's time and
+    device time by kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import mamba_stage_ref
+
+    def inputs(shape, dtype, seed):
+        """Δt as softplus gives it, x and B ~ N(0, 1), A = -exp(A_log) with
+        Mamba's A_log = log(1..st)."""
+        B, S, di, st = shape
+        g = torch.Generator(device=dev).manual_seed(seed)
+        dt = F.softplus(torch.randn((B, S, di), generator=g, device=dev) - 2)
+        x = torch.randn((B, S, di), generator=g, device=dev)
+        Bm = torch.randn((B, S, st), generator=g, device=dev)
+        A = -torch.arange(1, st + 1, dtype=torch.float32, device=dev).repeat(di, 1)
+        return dt.to(dtype), x.to(dtype), Bm.to(dtype), A
+
+    for i, (*shape, dtype) in enumerate(STAGE_CASES + [(*STAGE_FULL, "bfloat16")]):
+        gc.collect()
+        torch.cuda.empty_cache()
+        args = inputs(shape, getattr(torch, dtype), SEED + i)
+        got = ops.mamba_stage(*args)
+        stage_equal(f"stage {tuple(shape)} {dtype}", got, mamba_stage_ref(*args))
+        del args, got
+    log(f"stage: {len(STAGE_CASES) + 1} shapes bitwise equal to the plain staging (a and b), "
+        f"the serving wave {STAGE_FULL} ({math.prod(STAGE_FULL):.3g} elements) included")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = inputs(STAGE_FULL, torch.bfloat16, SEED)
+    launch = lambda: ops.mamba_stage(*args)  # noqa: E731
+    plain = lambda: mamba_stage_ref(*args)  # noqa: E731
+    timing = {"ms": cuda_ms(launch, iters=10), "host_ms": host_ms(launch, iters=10),
+              "device_ms": device_ms_by_kernel(launch, iters=3),
+              **stage_bound(STAGE_FULL, 2)}
+    timing["plain_ms"] = cuda_ms(plain, iters=3, warmup=1)
+    plain_by_kernel, _, _ = profiled(plain, 1)
+    timing["plain_device_ms"] = {k: ms for k, (ms, _) in plain_by_kernel.items()}
+    timing["bound_share"] = timing["bound_ms"] / timing["ms"]
+    log(f"stage: full width {STAGE_FULL} bf16: kernel {timing['ms']:.3f} ms/call, "
+        f"{100 * timing['bound_share']:.1f} % of its bound {timing['bound_ms']:.3f} ms (bytes: "
+        f"{timing['bytes'] / 1e9:.2f} GB); host enqueue {timing['host_ms'] * 1e3:.1f} us; device "
+        f"by kernel (torch.profiler, ms/launch): "
+        + (", ".join(f"{n} {m:.3f}" for n, m in timing["device_ms"].items())
+           or "not measured (no device time recorded)")
+        + f"; the plain staging {timing['plain_ms']:.3f} ms/call, device (ms): "
+        + (", ".join(f"{n} {m:.3f}" for n, m in timing["plain_device_ms"].items())
+           or "not measured"))
+    del args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return timing
+
+
 # ------------------------------------------------ main paths C, D: serve
 def device_breakdown(fn) -> dict:
     """One profiled call of ``fn``: device ms by kernel (top 8), the sum, the
@@ -1470,9 +1594,10 @@ def device_classes(by_kernel: dict) -> dict:
     return out
 
 
-def phase_serve(dev, arch: str, kernel: str, bf16_smokes=(), monitor=None) -> dict:
-    """Serve ``arch`` at its published width through ``kernel``, which must
-    launch once per layer per prefill wave while no other kernel launches;
+def phase_serve(dev, arch: str, kernels: tuple, bf16_smokes=(), monitor=None) -> dict:
+    """Serve ``arch`` at its published width through ``kernels``, each of
+    which must launch once per layer per prefill wave while no other kernel
+    launches;
     then hold the float32 smoke model of ``arch``, and the bf16 smoke model
     of each of ``bf16_smokes``, on the card against the CPU.  ``monitor``
     is passed to serve (default: serve's own)."""
@@ -1502,7 +1627,7 @@ def phase_serve(dev, arch: str, kernel: str, bf16_smokes=(), monitor=None) -> di
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     waves = -(-SERVE["n_requests"] // SERVE["batch"])
-    want = {name: (cfg.n_layers * waves if name == kernel else 0) for name in counts}
+    want = {name: (cfg.n_layers * waves if name in kernels else 0) for name in counts}
     mon = out["monitor"]
     if out["requests"] != SERVE["n_requests"] or \
             out["tokens"] != SERVE["n_requests"] * SERVE["max_new"]:
@@ -1510,7 +1635,7 @@ def phase_serve(dev, arch: str, kernel: str, bf16_smokes=(), monitor=None) -> di
     if mon["frames"] <= 0 or mon["events"] <= 0:
         raise AssertionError(f"{tag}: empty monitor summary {mon}")
     if counts != want:
-        raise AssertionError(f"{tag}: launches {counts}, expected {want} ({kernel} once per "
+        raise AssertionError(f"{tag}: launches {counts}, expected {want} ({kernels} once per "
                              f"layer per wave: {cfg.n_layers} layers x {waves} waves)")
     log(f"{tag}: full width, {cfg.n_params():,} parameters ({param_bytes / 1e9:.2f} "
         f"GB float32 master); {out['requests']} requests, {out['tokens']} tokens in "
@@ -2026,7 +2151,7 @@ def phase_serve_moe(dev) -> dict:
     waves = -(-SERVE["n_requests"] // SERVE["batch"])  # serve ingests one frame per wave
     viewer, poller = Viewer(endpoint), Poller(endpoint, lambda: mon.frames_ingested >= waves)
     try:
-        served = phase_serve(dev, SERVE_MOE, "flash_attention", bf16_smokes=(SERVE_MOE,),
+        served = phase_serve(dev, SERVE_MOE, ("flash_attention",), bf16_smokes=(SERVE_MOE,),
                              monitor=mon)
         poller.close()
         bad = {k: n for k, n in poller.statuses.items() if k[1] != 200}
@@ -2123,7 +2248,7 @@ def phase_serve_vl(dev) -> dict:
         f"requests): {first[1]}")
     mon = ChimbukoMonitor(**example.MONITOR)
     try:
-        served = phase_serve(dev, SERVE_VL, "flash_attention", bf16_smokes=(SERVE_VL,),
+        served = phase_serve(dev, SERVE_VL, ("flash_attention",), bf16_smokes=(SERVE_VL,),
                              monitor=mon)
         profile = example.profile(mon)
     finally:
@@ -3338,9 +3463,10 @@ def seq_parallel_bodies(dev) -> dict:
       (i)   the Mamba mixer, four shards each scanning with the scan kernel
             from h0 = 0, against mamba_prefill's output and state on both
             of its scan routes (the kernel; the chunked plain scan); the
-            kernel at each shard's shape against mamba_scan_ref on the
-            shard's own a, b and C; the scan's launches held against its
-            wrapper's counter (profiled);
+            staging kernel at each shard's shape bitwise against
+            mamba_stage_ref on the shard's own inputs, and the scan kernel
+            against mamba_scan_ref on the shard's own a, b and C; the
+            launches held against their wrappers' counters (profiled);
       (ii)  decode attention of a local and a global layer at positions
             after the prompt, over a cache split four ways, against
             _attn_decode, and the cache blocks after it;
@@ -3352,8 +3478,9 @@ def seq_parallel_bodies(dev) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import mamba_scan as ms_mod
+    from repro_torch.kernels import mamba_stage as mst_mod
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import mamba_scan_ref
+    from repro_torch.kernels.ref import mamba_scan_ref, mamba_stage_ref
     from repro_torch.models import layers as L
     from repro_torch.models import mamba as MB
     from repro_torch.models import model as M
@@ -3384,11 +3511,12 @@ def seq_parallel_bodies(dev) -> dict:
                        for r in range(n)], dim=1)
         return y, MB.prefix_state(pairs, n), tails[-1]
 
-    before = read_counts()["mamba_scan"]
+    before = read_counts()
     y, h, conv = mixer()
-    if read_counts()["mamba_scan"] - before != n:
-        raise AssertionError(f"{tag}: {n} shards launched the scan "
-                             f"{read_counts()['mamba_scan'] - before} times")
+    for name in ("mamba_scan", "mamba_stage"):
+        if read_counts()[name] - before[name] != n:
+            raise AssertionError(f"{tag}: {n} shards launched {name} "
+                                 f"{read_counts()[name] - before[name]} times")
     errs = {}
     # against the unsharded mixer on both scan routes: the kernel's, and the
     # chunked plain scan's, which runs no kernel
@@ -3402,17 +3530,19 @@ def seq_parallel_bodies(dev) -> dict:
             raise AssertionError(f"{tag}: the conv state differs from mamba_prefill's")
         del want_y, want
     del y, h, conv
-    # each shard's scan at the shape this path gives the kernel, on the
-    # shard's own a, b and C, against the plain version (SCAN_TOL; h_last
-    # bitwise, as phase_scan holds it); these launches are not the path's
-    counted = ms_mod.launches
+    # each shard's staging and scan at the shape this path gives the
+    # kernels, on the shard's own inputs, against the plain versions (the
+    # staging bitwise, as phase_stage holds it; the scan within SCAN_TOL,
+    # h_last bitwise, as phase_scan holds it); these launches are not the path's
+    counted = ms_mod.launches, mst_mod.launches
     scan_err = 0.0
     xs = [(u[:, r * S_loc:(r + 1) * S_loc] @ p["in_proj"]).chunk(2, dim=-1)[0] for r in range(n)]
     for r in range(n):
         left = xs[r - 1][:, -(K - 1):] if r else torch.zeros_like(xs[0][:, :K - 1])
         xc = L.silu(MB.causal_conv1d(xs[r], p["conv_w"], p["conv_b"], left))
         dt, Bm, Cm, A = MB._project(p, xc, cfg)
-        a, b = MB._scan_elements(dt, xc, Bm, A)
+        a, b = ops.mamba_stage(dt, xc, Bm, A)
+        stage_equal(f"{tag}: shard {r} staging", (a, b), mamba_stage_ref(dt, xc, Bm, A))
         y_k, h_k = ops.mamba_scan(a, b, Cm.float())
         y_p, h_p = mamba_scan_ref(a, b, Cm.float())
         scan_err = max(scan_err, _held(tag, f"shard {r} scan y {tuple(a.shape)}", y_k, y_p,
@@ -3420,7 +3550,7 @@ def seq_parallel_bodies(dev) -> dict:
         if not torch.equal(h_k, h_p):
             raise AssertionError(f"{tag}: shard {r}'s h_last differs from the plain scan's")
         del a, b, y_k, h_k, y_p, h_p
-    ms_mod.launches = counted
+    ms_mod.launches, mst_mod.launches = counted
     shard_shape = (B, S_loc, cfg.d_inner, cfg.ssm_d_state)
     del xs
     ms, ref_ms = _device_ms(mixer), _device_ms(lambda: MB.mamba_prefill(p, u, cfg))
@@ -3434,7 +3564,8 @@ def seq_parallel_bodies(dev) -> dict:
         f"equal to the wrapper's): y within rtol = atol = {SEQ_TOL} of mamba_prefill through "
         f"the kernel (max abs diff {y_err:.4g}) and through the chunked plain scan ({y_plain:.4g}), "
         f"the prefix-combined state within rtol 1e-3, atol 1e-4 of its largest element (max abs "
-        f"diff {h_err:.4g} and {h_plain:.4g}), the conv state bitwise; each shard's kernel scan "
+        f"diff {h_err:.4g} and {h_plain:.4g}), the conv state bitwise; each shard's staging "
+        f"kernel at {shard_shape} bitwise equal to mamba_stage_ref, its kernel scan "
         f"at {shard_shape} within rtol = atol = {SCAN_TOL} of mamba_scan_ref on the same a, b "
         f"and C (max abs err {scan_err:.3g}, h_last bitwise); device {ms:.3f} ms for the {n} "
         f"shards against {ref_ms:.3f} ms unsharded")
@@ -3616,7 +3747,7 @@ def phase_seq_parallel(dev) -> dict:
     model = seq_parallel_model(dev)
     bodies = seq_parallel_bodies(dev)
     counts = read_counts()
-    for name in ("flash_attention", "mamba_scan"):
+    for name in ("flash_attention", "mamba_scan", "mamba_stage"):
         if counts[name] <= 0:
             raise AssertionError(f"path L never launched {name}: {counts}")
     return {"counts": counts, "model": model, "bodies": bodies}
@@ -3997,10 +4128,10 @@ def _local_bytes(tree) -> int:
 def mesh_serve_held(tag: str, cfg, dev, whole, placed, mesh) -> dict:
     """SERVE["batch"] prompts of SERVE["prompt_len"] tokens (from SEED) and
     SERVE["max_new"] greedy tokens: (a) one device on ``whole`` (prefill
-    through the kernels), (b) the same with attention and the scan through
-    their plain versions, fed (a)'s tokens (the card's bf16 baseline), (c)
-    on ``mesh`` with the ``placed`` weights, caches by cache_shardings'
-    rule, fed (a)'s tokens.  (c)'s logits (prefill's last position and
+    through the kernels), (b) the same with attention, the staging and the
+    scan through their plain versions, fed (a)'s tokens (the card's bf16
+    baseline), (c) on ``mesh`` with the ``placed`` weights, caches by
+    cache_shardings' rule, fed (a)'s tokens.  (c)'s logits (prefill's last position and
     every step) may differ from (a)'s by (b)'s largest difference + SEQ_TOL
     at most.  -> the differences, (c)'s prefill ms per wave (CUDA events),
     decode ms per step, collectives per decode step and peak."""
@@ -4008,7 +4139,7 @@ def mesh_serve_held(tag: str, cfg, dev, whole, placed, mesh) -> dict:
 
     from repro_torch import compat
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import flash_attention_ref, mamba_scan_ref
+    from repro_torch.kernels.ref import flash_attention_ref, mamba_scan_ref, mamba_stage_ref
     from repro_torch.launch import roofline as R
     from repro_torch.launch import steps as TS
     from repro_torch.models import model as M
@@ -4040,12 +4171,13 @@ def mesh_serve_held(tag: str, cfg, dev, whole, placed, mesh) -> dict:
 
     la, ta, dec_a, _, cache = run(M.ShardCtx(), whole)
     del cache
-    kernels = ops._fa.flash_attention, ops._ms.mamba_scan
-    ops._fa.flash_attention, ops._ms.mamba_scan = flash_attention_ref, mamba_scan_ref
+    kernels = ops._fa.flash_attention, ops._ms.mamba_scan, ops._mst.mamba_stage
+    ops._fa.flash_attention, ops._ms.mamba_scan, ops._mst.mamba_stage = \
+        flash_attention_ref, mamba_scan_ref, mamba_stage_ref
     try:
         lb, _, _, _, cache = run(M.ShardCtx(), whole, forced=ta)
     finally:
-        ops._fa.flash_attention, ops._ms.mamba_scan = kernels
+        ops._fa.flash_attention, ops._ms.mamba_scan, ops._mst.mamba_stage = kernels
     del cache
     lc, tc, dec_c, peak_c, cache = run(meshed, placed, forced=ta)
     for name, lg in (("one device", la), ("plain", lb), ("meshed", lc)):
@@ -4145,7 +4277,7 @@ def phase_mesh_serve(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     counts = read_counts()
-    for name in ("flash_attention", "mamba_scan"):
+    for name in ("flash_attention", "mamba_scan", "mamba_stage"):
         if counts[name] <= 0:
             raise AssertionError(f"path N never launched {name}: {counts}")
     return {"counts": counts, "dryrun": dry, "tp_decode": tp, "serve": served, "held": held}
@@ -4309,6 +4441,7 @@ def main() -> int:
     flash = phase_flash(dev, flash_agree)
     scan_agree = OutputAgreement()
     scan = phase_scan(dev, scan_agree)
+    stage = phase_stage(dev)
     phase_refusals(dev)
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -4318,12 +4451,12 @@ def main() -> int:
         try:
             trace = phase_trace(dev, dist.group.WORLD)
             width = phase_width(dev, agree)
-            served = phase_serve(dev, "gemma-2b", "flash_attention",
+            served = phase_serve(dev, "gemma-2b", ("flash_attention",),
                                  bf16_smokes=("gemma-2b", "gemma2-2b"))
             prefill_f32 = phase_prefill_f32(dev)
-            served_ssm = phase_serve(dev, "falcon-mamba-7b", "mamba_scan")
+            served_ssm = phase_serve(dev, "falcon-mamba-7b", ("mamba_scan", "mamba_stage"))
             served_moe = phase_serve_moe(dev)
-            served_mla = phase_serve(dev, SERVE_MLA, "flash_attention",
+            served_mla = phase_serve(dev, SERVE_MLA, ("flash_attention",),
                                      bf16_smokes=(SERVE_MLA,))
             served_vl = phase_serve_vl(dev)
             trained = phase_train(dev)
@@ -4372,10 +4505,11 @@ def main() -> int:
              "train_mesh": mesh_train["counts"], "serve_mesh": mesh_serve["counts"]}
     needs = {"trace": ("moments_and_labels",), "width": ("moments_and_labels",),
              "serve": ("flash_attention",), "prefill_f32": ("flash_attention",),
-             "serve_ssm": ("mamba_scan",),
+             "serve_ssm": ("mamba_scan", "mamba_stage"),
              "serve_moe": ("flash_attention",), "serve_mla": ("flash_attention",),
-             "serve_vl": ("flash_attention",), "seq_parallel": ("flash_attention", "mamba_scan"),
-             "serve_mesh": ("flash_attention", "mamba_scan")}
+             "serve_vl": ("flash_attention",),
+             "seq_parallel": ("flash_attention", "mamba_scan", "mamba_stage"),
+             "serve_mesh": ("flash_attention", "mamba_scan", "mamba_stage")}
     for path, names in needs.items():
         for name in names:
             if paths[path][name] <= 0:
@@ -4491,6 +4625,24 @@ def main() -> int:
         "h_last_bitwise_equal": True,  # phase_scan raised otherwise
         "serve_ssm": serve_numbers(served_ssm),
         "seq_parallel_mixer": seq["bodies"]["mamba"],
+    }, {
+        "name": "mamba_stage",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_stage.cu",
+        "replaces": None,  # the JAX package stages a and b op by op
+        "launches": sum(by_path("mamba_stage").values()),
+        "launches_by_path": by_path("mamba_stage"),
+        "bitwise_equal": True,  # phase_stage raised otherwise
+        "ms": stage["ms"],
+        "plain_ms": stage["plain_ms"],
+        "plain_device_ms": stage["plain_device_ms"],
+        "bound_ms": stage["bound_ms"],
+        "bound_by": stage["bound_by"],
+        "bound_share": stage["bound_share"],
+        "library_ms": None,
+        "shape": dict(zip(("B", "S", "d_inner", "d_state"), STAGE_FULL)),
+        "host_ms": stage["host_ms"],
+        "device_ms": stage["device_ms"],
     }]
     log(f"trace precision {trace['precision']:.4f} recall {trace['recall']:.4f}; "
         f"build {env['build_s']:.2f} s; wall {time.perf_counter() - t_start:.1f} s")

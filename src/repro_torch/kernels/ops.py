@@ -5,8 +5,8 @@ head-dim padding for attention, float32 scan elements) and the format
 conversion between the moments kernel's raw-sums table (n, Σx, Σx², min,
 max) and the torch_ad (n, mean, M2, min, max) layout.  Each wrapper runs
 the kernel for CUDA tensors and its plain version for CPU tensors (see
-``moments.moments_and_labels``, ``flash_attention.flash_attention`` and
-``mamba_scan.mamba_scan``).
+``moments.moments_and_labels``, ``flash_attention.flash_attention``,
+``mamba_scan.mamba_scan`` and ``mamba_stage.mamba_stage``).
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from ..core.torch_ad import merge_tables
 from . import flash_attention as _fa
 from . import mamba_scan as _ms
+from . import mamba_stage as _mst
 from . import moments as _mo
 
 
@@ -122,3 +123,16 @@ def mamba_scan(
     """
     return _ms.mamba_scan(a.float().contiguous(), b.float().contiguous(),
                           C.float().contiguous())
+
+
+def mamba_stage(
+    dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor, A: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel-backed scan elements; dt/x (B,S,di), Bm (B,S,st) in the
+    compute dtype, A (di,st) float32 -> (a = exp(dt·A), b = (dt·x)·B), each
+    (B,S,di,st) float32.
+
+    The inputs are taken contiguous (B and C are strided views of one
+    projection's output) but never cast: dt·x rounds in their dtype.
+    """
+    return _mst.mamba_stage(dt.contiguous(), x.contiguous(), Bm.contiguous(), A.contiguous())

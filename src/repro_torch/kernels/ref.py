@@ -121,3 +121,13 @@ def mamba_scan_ref(
         h = a[:, t] * h + b[:, t]
         y[:, t] = torch.einsum("bds,bs->bd", h, C[:, t])
     return y, h
+
+
+def mamba_stage_ref(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor, A: torch.Tensor):
+    """The scan's decay a = exp(dt·A) and drive b = (dt·x)·B, (B,L,di,st)
+    float32, from dt/x (B,L,di), Bm (B,L,st) and A (di,st).  dt·x is taken
+    in the compute dtype before the cast, as JAX takes it: in bf16 that
+    rounding point decides parity."""
+    a = (dt.float()[..., None] * A).exp_()
+    b = (dt * x).float()[..., None] * Bm.float()[:, :, None, :]
+    return a, b

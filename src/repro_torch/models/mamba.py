@@ -7,10 +7,11 @@ Two sequence paths, as in the JAX package:
     h_t = a_t h_{t-1} + b_t is a log-depth associative scan (the same
     odd/even recursion as ``lax.associative_scan``), chunks threaded in
     order with only the boundary state carried.
-  * ``mamba_prefill`` (prefill) — one launch of the hand-written scan
-    kernel (``kernels.ops.mamba_scan``) per layer gives both the output and
-    the final state the decode cache needs, where JAX runs the projections
-    and the scan a second time (``model._mamba_prefill_state``).
+  * ``mamba_prefill`` (prefill) — one launch of the hand-written staging
+    kernel (``kernels.ops.mamba_stage``) builds the scan's a and b, and one
+    of the scan kernel (``kernels.ops.mamba_scan``) per layer gives both the
+    output and the final state the decode cache needs, where JAX runs the
+    projections and the scan a second time (``model._mamba_prefill_state``).
 
 Decode is the O(1) single-step state update, ``mamba_decode``, with the
 cache updated in place; ``mamba_decode_tp`` runs it tensor-parallel over a
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..kernels.ref import mamba_stage_ref
 from ..telemetry.selftrace import get_self_tracer
 from . import layers as L
 from .common import ModelConfig
@@ -131,19 +133,10 @@ def _ssm_scan_fused(
     ys = []
     for i in range(0, S, Lc):
         dtc, xc, bc, cc = (t[:, i:i + Lc] for t in (dt, x, Bm, Cm))
-        a, b = _scan_elements(dtc, xc, bc, A)
+        a, b = mamba_stage_ref(dtc, xc, bc, A)
         h, y = _chunk_scan(a, b, cc.float(), h)
         ys.append(y)
     return torch.cat(ys, dim=1), h
-
-
-def _scan_elements(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor, A: torch.Tensor):
-    """The scan's decay a = exp(dt·A) and drive b = (dt·x)·B, (B,L,di,st)
-    float32.  dt·x is taken in the compute dtype before the cast, as JAX
-    takes it: in bf16 that rounding point decides parity."""
-    a = (dt.float()[..., None] * A).exp_()
-    b = (dt * x).float()[..., None] * Bm.float()[:, :, None, :]
-    return a, b
 
 
 def _h0_correction(
@@ -183,13 +176,13 @@ def seq_shard_scan(p: Dict[str, torch.Tensor], x: torch.Tensor, left: torch.Tens
     """One sequence shard's local work before the exchange of states: the
     causal conv from the halo ``left`` (the K−1 pre-conv inputs before the
     shard, zeros on the first), the projections, and the scan from h₀ = 0,
-    through ``ops.mamba_scan`` on the staged a and b where ``kernel``, else
+    through ``ops.mamba_stage`` and ``ops.mamba_scan`` where ``kernel``, else
     the chunked plain scan.  -> (conv output, Δt, C, A, y₀, the shard's
     (2, B, di, st) pair (exp(A·ΣΔt), h_last))."""
     x = L.silu(causal_conv1d(x, p["conv_w"], p["conv_b"], left))
     dt, Bm, Cm, A = _project(p, x, cfg)
     if kernel:
-        a, b = _scan_elements(dt, x, Bm, A)
+        a, b = ops.mamba_stage(dt, x, Bm, A)
         y0, h_last = ops.mamba_scan(a, b, Cm.float())
         del a, b
     else:
@@ -284,12 +277,13 @@ def mamba_prefill(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill mixer: (output (B,S,d_model), decode state {"h", "conv"}).
 
-    One ``ops.mamba_scan`` launch gives y and the final state; the conv
+    One ``ops.mamba_stage`` launch builds the scan elements a and b, one
+    ``ops.mamba_scan`` launch gives y and the final state; the conv
     tail is the last K−1 pre-conv inputs, as JAX's ``_mamba_prefill_state``
     takes them (left-padded with the conv's zeros when S < K−1, where JAX
-    keeps fewer rows and its decode cannot run).  Any S ≥ 1.  The scan elements a and b
-    are (B,S,di,st) float32 (2.15 GB each at falcon-mamba-7b's serving wave
-    of 4 × 1024) and are freed before the layer returns.  With ``chunk``
+    keeps fewer rows and its decode cannot run).  Any S ≥ 1.  a and b are
+    (B,S,di,st) float32 (17.2 GB each at falcon-mamba-7b's serving wave of
+    32 × 1024) and are freed before the layer returns.  With ``chunk``
     the scan is ``mamba_sequence``'s chunked plain scan instead (the dry
     run: no kernel takes meta tensors), which gives y and the state too.
     """
@@ -308,7 +302,7 @@ def mamba_prefill(
             # the cache would otherwise keep alive (268 MB a layer at 4 x 1024)
             return _output(p, y, x, z, u.dtype), {"h": h.clone(), "conv": conv}
         with _TRACER.span("mamba/stage"):
-            a, b = _scan_elements(dt, x, Bm, A)
+            a, b = ops.mamba_stage(dt, x, Bm, A)
         y, h = ops.mamba_scan(a, b, Cm.float())
         del a, b
         return _output(p, y, x, z, u.dtype), {"h": h, "conv": conv}

@@ -354,3 +354,48 @@ def test_chip_smoke_reads_the_moments_kernels_ptxas_and_sass(monkeypatch, spills
     else:
         with pytest.raises(AssertionError, match=fault):
             cs.moments_build_facts()
+
+
+def test_chip_smoke_kernel_times_leave_out_the_programs_ranges():
+    """chip_smoke.py sums device time over kernels only: the profiler's
+    device-side copies of the program's record_function ranges (user
+    annotations), its schedule's range and host events are left out, so a
+    prefill's device time cannot exceed its wall time."""
+    from types import SimpleNamespace as E
+
+    cs = _chip_smoke()
+    events = [
+        E(key="mamba_stage_ab", device_type="DeviceType.CUDA", self_device_time_total=2000.0,
+          count=2, is_user_annotation=False),
+        E(key="mamba_stage_ab", device_type="DeviceType.CUDA", self_device_time_total=1000.0,
+          count=1),
+        E(key="mamba/stage", device_type="DeviceType.CUDA", self_device_time_total=3500.0,
+          count=3, is_user_annotation=True),
+        E(key="model/prefill", device_type="DeviceType.CPU", self_device_time_total=0.0,
+          count=1, is_user_annotation=True),
+        E(key="ProfilerStep#1", device_type="DeviceType.CUDA", self_device_time_total=9000.0,
+          count=1, is_user_annotation=False),
+        E(key="aten::mul", device_type="DeviceType.CPU", self_device_time_total=0.0, count=4),
+    ]
+    assert cs.kernel_times(events) == {"mamba_stage_ab": (3.0, 3)}
+
+
+@pytest.mark.parametrize("where", [None, ("a", 0), ("b", 37), ("b", 63)])
+def test_chip_smoke_stage_equal_compares_a_and_b_bitwise_in_chunks(monkeypatch, where):
+    """chip_smoke.py's check of the staged a and b: bit for bit over every
+    chunk of STAGE_EQUAL_CHUNK elements, the last one short, and the
+    mismatch's count and ulp named where one element is one ulp off."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "STAGE_EQUAL_CHUNK", 10)
+    gen = torch.Generator().manual_seed(0)
+    want = tuple(torch.rand((2, 2, 4, 4), generator=gen) for _ in "ab")
+    got = [t.clone() for t in want]
+    if where is None:
+        cs.stage_equal("case", got, want)
+        return
+    name, i = where
+    g = got["ab".index(name)].view(torch.int32).view(-1)
+    g[i] += 1
+    with pytest.raises(AssertionError, match=f"case: {name} differs .* in 1 elements, by at "
+                                             f"most 1 ulp"):
+        cs.stage_equal("case", got, want)

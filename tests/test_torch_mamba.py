@@ -37,8 +37,9 @@ from repro.models.common import init_params as j_init_params  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.kernels import mamba_scan as tms  # noqa: E402
+from repro_torch.kernels import mamba_stage as tmst  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
-from repro_torch.kernels.ref import mamba_scan_ref  # noqa: E402
+from repro_torch.kernels.ref import mamba_scan_ref, mamba_stage_ref  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import mamba as TMB  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
@@ -436,3 +437,72 @@ def test_scan_wrapper_gives_no_plain_fallback_off_the_cpu():
     a = torch.zeros((1, 8, 4, 16), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         tms.mamba_scan(a, a, torch.zeros((1, 8, 16), device="meta"))
+
+
+# ------------------------------------------------------- staging wrapper
+def _stage_inputs(B=2, S=6, di=10, st=16, dtype=torch.bfloat16, seed=3):
+    rng = np.random.default_rng(seed)
+    dt = torch.from_numpy(np.log1p(np.exp(rng.normal(-2, 1, (B, S, di)))).astype(np.float32))
+    x, Bm = (torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+             for shape in ((B, S, di), (B, S, st)))
+    A = -torch.from_numpy(np.tile(np.arange(1, st + 1, dtype=np.float32), (di, 1)))
+    return dt.to(dtype), x.to(dtype), Bm.to(dtype), A
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stage_wrapper_on_the_cpu_is_the_plain_staging_bitwise(dtype):
+    """ops.mamba_stage on CPU tensors returns mamba_stage_ref's tensors bit
+    for bit, B as the strided view the projection's split gives, and
+    launches nothing."""
+    dt, x, Bm, A = _stage_inputs(dtype=dtype)
+    dbl = torch.cat([Bm, Bm * 2], dim=-1)
+    Bv = dbl[..., :Bm.shape[-1]]
+    assert not Bv.is_contiguous()
+    before = tmst.launches
+    a, b = tops.mamba_stage(dt, x, Bv, A)
+    want_a, want_b = mamba_stage_ref(dt, x, Bm, A)
+    assert tmst.launches == before
+    assert a.dtype == b.dtype == torch.float32 and a.shape == (2, 6, 10, 16)
+    assert torch.equal(a.view(torch.int32), want_a.view(torch.int32))
+    assert torch.equal(b.view(torch.int32), want_b.view(torch.int32))
+
+
+def _stage_refusal(case):
+    dt, x, Bm, A = _stage_inputs()
+    return {
+        "dt not 3-D": (TypeError, None, (dt[0], x[0], Bm[0], A)),
+        "A not 2-D": (TypeError, None, (dt, x, Bm, A[None])),
+        "dt float16": (TypeError, None, (dt.half(), x.half(), Bm.half(), A)),
+        "x's dtype differs": (TypeError, None, (dt, x.float(), Bm, A)),
+        "A bf16": (TypeError, None, (dt, x, Bm, A.bfloat16())),
+        "x's shape differs": (ValueError, None, (dt, x[:, :5], Bm, A)),
+        "B's batch differs": (ValueError, None, (dt, x, Bm[:1], A)),
+        "B's length differs": (ValueError, None, (dt, x, Bm[:, :5], A)),
+        "A's d_inner differs": (ValueError, None, (dt, x, Bm, A[:9])),
+        "B's d_state differs": (ValueError, None, (dt, x, Bm[..., :8], A)),
+        "d_state 33": (ValueError, "d_state", _stage_inputs(st=33)),
+        "x not contiguous": (ValueError, "contiguous",
+                             (dt, x.transpose(0, 1).contiguous().transpose(0, 1), Bm, A)),
+        "B not contiguous": (ValueError, "contiguous",
+                             (dt, x, torch.cat([Bm, Bm], -1)[..., :16], A)),
+        "two devices": (ValueError, "one device", (dt, x, Bm, A.to("meta"))),
+        "meta device": (ValueError, "cuda or cpu",
+                        tuple(t.to("meta") for t in (dt, x, Bm, A))),
+        "slab beyond 2**30": (ValueError, "exceeds", tuple(
+            torch.empty(shape, dtype=dtype, device="meta") for shape, dtype in (
+                ((1, 1, 2**25 + 1), torch.bfloat16), ((1, 1, 2**25 + 1), torch.bfloat16),
+                ((1, 1, 32), torch.bfloat16), ((2**25 + 1, 32), torch.float32)))),
+    }[case]
+
+
+@pytest.mark.parametrize("case", [
+    "dt not 3-D", "A not 2-D", "dt float16", "x's dtype differs", "A bf16", "x's shape differs",
+    "B's batch differs", "B's length differs", "A's d_inner differs", "B's d_state differs",
+    "d_state 33", "slab beyond 2**30", "x not contiguous", "B not contiguous", "two devices",
+    "meta device"])
+def test_stage_wrapper_rejects_what_the_kernel_does_not_take(case):
+    """The wrapper raises on what the kernel does not take; only CPU tensors
+    take the plain version, others launch or raise."""
+    error, match, args = _stage_refusal(case)
+    with pytest.raises(error, match=match):
+        tmst.mamba_stage(*args)
