@@ -75,6 +75,6 @@ def prefill_flops(m: dict, B: int, S: int) -> float:
     return flops + 2.0 * m["d_model"] * m["vocab"] * B
 
 
-def mfu(flops: float, seconds: float) -> float:
-    """The share of the card's bf16 peak that ``flops`` in ``seconds`` is."""
-    return flops / (seconds * BF16_FLOPS)
+def mfu(flops: float, seconds: float, chips: int = 1) -> float:
+    """The share of ``chips`` cards' bf16 peak that ``flops`` in ``seconds`` is."""
+    return flops / (seconds * BF16_FLOPS) / chips

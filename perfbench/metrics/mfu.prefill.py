@@ -1,5 +1,6 @@
 """mfu.prefill: the prefill's model operations (peaks.prefill_flops) over
-its mean device time (prefill_ms), as a share of the card's bf16 peak, %."""
+its mean device time (prefill_ms), as a share of the bf16 peak of the
+cell's cards (chips × one card's), %."""
 from perfbench.harness import peaks
 
 
@@ -9,4 +10,4 @@ def read(run):
         return None
     t = run.traffic
     flops = peaks.prefill_flops(run.model, t["clients"], t["prompt_len"])
-    return 100.0 * peaks.mfu(flops, sum(ms) / len(ms) / 1e3)
+    return 100.0 * peaks.mfu(flops, sum(ms) / len(ms) / 1e3, int(run.cell.workload["chips"]))

@@ -55,3 +55,31 @@ def test_tokens_count_only_inside_the_window():
     assert everything == pytest.approx(2 * (4 * 100 + 4 + 3 * 4))
     cut = w[1].emitted[0][0] - 1e-9  # the window closes before the second wave's first token
     assert stats.tokens_per_s(w, 0.0, cut) * cut == pytest.approx(4 * 100 + 4 + 3 * 4)
+
+
+@pytest.mark.parametrize("name,chips", [("falcon-mamba-7b.score-1k", 1),
+                                        ("jamba-v0.1-1p.doc-4k", 1), ("jamba-v0.1-1p.doc-4k", 4)])
+def test_mfu_prefill_is_over_the_peak_of_the_cells_cards(name, chips):
+    """A one-card cell reads what it read before the peak counted cards
+    (one card's peak, bit for bit); a four-card cell a quarter of that."""
+    import dataclasses
+
+    from perfbench.harness import peaks
+    from perfbench.harness import spec as SP
+    from perfbench.harness.cli import Run
+
+    cell = SP.load_cell(name)
+    cell = dataclasses.replace(cell, workload={**cell.workload, "chips": chips})
+    waves = closed_loop(3)
+    for w, ms in zip(waves, (350.59, 351.25, 349.875)):
+        w.prefill_ms = ms
+    run = Run(cell, waves, 0.0, waves[-1].t_end, 1.0)
+    t = cell.traffic
+    seconds = sum(w.prefill_ms for w in waves) / len(waves) / 1e3
+    one_card = 100.0 * (peaks.prefill_flops(cell.model, t["clients"], t["prompt_len"])
+                        / (seconds * 989e12))  # the reader's arithmetic before cards counted
+    got = SP.metric_reader("mfu.prefill").read(run)
+    if chips == 1:
+        assert got == one_card
+    else:
+        assert got == pytest.approx(one_card / chips, rel=1e-12)
