@@ -42,6 +42,10 @@ ALIASES.update(
         "qwen2-vl-2b": "qwen2_vl_2b",
     }
 )
+# Configurations of the port alone, outside ARCHS (the JAX package's ten):
+# found by get_config through ALIASES, not swept by all_cells.
+PORT_ONLY = {"deepseek-v2-lite": "deepseek_v2_lite"}
+ALIASES.update(PORT_ONLY)
 
 
 @dataclasses.dataclass(frozen=True)

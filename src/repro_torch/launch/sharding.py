@@ -46,9 +46,9 @@ def _spec(*entries) -> Spec:
 # model axis shards. 'col' -> output dim, 'row' -> input dim, 'rep' -> none.
 _COL = frozenset(
     {"wq", "wk", "wv", "wuq", "wuk", "wuv", "wdq", "in_proj", "dt_proj",
-     "w_gate", "w_up", "conv_w", "unembed"}
+     "w_gate", "w_up", "conv_w", "unembed", "shared_gate", "shared_up"}
 )
-_ROW = frozenset({"wo", "out_proj", "x_proj", "w_down", "A_log"})
+_ROW = frozenset({"wo", "out_proj", "x_proj", "w_down", "A_log", "shared_down"})
 _VEC_MODEL = frozenset({"conv_b", "dt_bias", "D"})  # d_inner-length vectors
 _EXPERT = frozenset({"moe_gate", "moe_up", "moe_down"})
 _REP = frozenset(

@@ -55,17 +55,27 @@ class ModelConfig:
     mrope_sections: Tuple[int, int, int] = (16, 24, 24)  # pairs per (t, h, w)
     # activation
     activation: str = "silu"  # silu (swiglu) | geglu | gelu (dense, no gate)
-    # MLA (DeepSeek/MiniCPM3-style latent attention)
+    # MLA (DeepSeek/MiniCPM3-style latent attention); q_lora_rank 0: no
+    # query latent, the queries straight from wq (DeepSeek-V2-Lite)
     q_lora_rank: int = 0
     kv_lora_rank: int = 0
     qk_nope_dim: int = 0
     qk_rope_dim: int = 0
     v_head_dim: int = 0
+    # The rope half's frequencies: "qk", the first rope/2 of a qk-dim-wide
+    # RoPE (JAX's); "rope", a rope-dim-wide RoPE of its own (DeepSeek's)
+    mla_rope_freqs: str = "qk"
+    # YaRN (DeepSeek's rope_scaling "yarn"); factor 0: none
+    yarn_factor: float = 0.0
+    yarn_original_max_pos: int = 4096
+    yarn_mscale_all_dim: float = 0.0
     # MoE
     moe_experts: int = 0
     moe_topk: int = 0
     moe_dff: int = 0
     moe_capacity_factor: float = 1.25
+    moe_renormalize: bool = True  # top-k weights over their sum (DeepSeek: not)
+    moe_shared_experts: int = 0  # always-on SwiGLU of width moe_shared_experts · moe_dff
     # Mamba (SSM)
     ssm_d_state: int = 16
     ssm_d_conv: int = 4
@@ -110,6 +120,11 @@ class ModelConfig:
     def qk_dim(self) -> int:
         return (self.qk_nope_dim + self.qk_rope_dim) if self.mixer_has(MLA) else self.head_dim
 
+    @property
+    def shared_dff(self) -> int:
+        """The shared experts' SwiGLU width (0: none)."""
+        return self.moe_shared_experts * self.moe_dff
+
     def mixer_has(self, kind: str) -> bool:
         return any(s.mixer == kind for s in self.layout)
 
@@ -144,7 +159,10 @@ class ModelConfig:
                 n += self.n_heads * self.head_dim * d  # o
             elif spec.mixer == MLA:
                 qh = self.qk_nope_dim + self.qk_rope_dim
-                n += d * self.q_lora_rank + self.q_lora_rank * self.n_heads * qh
+                if self.q_lora_rank:
+                    n += d * self.q_lora_rank + self.q_lora_rank * self.n_heads * qh
+                else:
+                    n += d * self.n_heads * qh
                 n += d * (self.kv_lora_rank + self.qk_rope_dim)
                 n += self.kv_lora_rank * self.n_heads * (self.qk_nope_dim + self.v_head_dim)
                 n += self.n_heads * self.v_head_dim * d
@@ -160,6 +178,7 @@ class ModelConfig:
             elif spec.mlp == MOE:
                 n += d * self.moe_experts
                 n += self.moe_experts * 3 * d * self.moe_dff
+                n += 3 * d * self.shared_dff
             n += d  # ln1
             if spec.mlp != NONE:
                 n += d  # ln2
@@ -205,9 +224,12 @@ def layer_param_shapes(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Tuple[Tup
         out["wo"] = ((H * hd, d), "dense")
     elif spec.mixer == MLA:
         H, qh = cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim
-        out["wdq"] = ((d, cfg.q_lora_rank), "dense")
-        out["q_ln"] = ((cfg.q_lora_rank,), "ones")
-        out["wuq"] = ((cfg.q_lora_rank, H * qh), "dense")
+        if cfg.q_lora_rank:
+            out["wdq"] = ((d, cfg.q_lora_rank), "dense")
+            out["q_ln"] = ((cfg.q_lora_rank,), "ones")
+            out["wuq"] = ((cfg.q_lora_rank, H * qh), "dense")
+        else:
+            out["wq"] = ((d, H * qh), "dense")
         out["wdkv"] = ((d, cfg.kv_lora_rank + cfg.qk_rope_dim), "dense")
         out["kv_ln"] = ((cfg.kv_lora_rank,), "ones")
         out["wuk"] = ((cfg.kv_lora_rank, H * cfg.qk_nope_dim), "dense")
@@ -238,6 +260,10 @@ def layer_param_shapes(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Tuple[Tup
         out["moe_gate"] = ((E, d, f), "dense")
         out["moe_up"] = ((E, d, f), "dense")
         out["moe_down"] = ((E, f, d), "dense")
+        if cfg.shared_dff:
+            out["shared_gate"] = ((d, cfg.shared_dff), "dense")
+            out["shared_up"] = ((d, cfg.shared_dff), "dense")
+            out["shared_down"] = ((cfg.shared_dff, d), "dense")
     if cfg.sandwich_norm:
         out["post_ln1"] = ((d,), "ones")
         if spec.mlp != NONE:

@@ -47,6 +47,49 @@ def rope_cos_sin(
     return torch.cos(ang), torch.sin(ang)
 
 
+YARN_BETA_FAST, YARN_BETA_SLOW = 32.0, 1.0  # rotations that bound YaRN's ramp (DeepSeek-V2's)
+
+
+def yarn_range(dim: int, theta: float, original: int) -> Tuple[int, int]:
+    """YaRN's (low, high) pair indices: the dims whose wavelength fits
+    ``YARN_BETA_FAST`` and ``YARN_BETA_SLOW`` rotations into ``original`` positions."""
+    def at(rotations: float) -> float:
+        return dim * math.log(original / (rotations * 2 * math.pi)) / (2 * math.log(theta))
+
+    return max(math.floor(at(YARN_BETA_FAST)), 0), min(math.ceil(at(YARN_BETA_SLOW)), dim - 1)
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention scale 0.1·mscale·ln(factor) + 1 (1 for factor ≤ 1)."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+@functools.lru_cache(maxsize=None)
+def yarn_inv_freq(dim: int, theta: float, factor: float, original: int,
+                  device: torch.device) -> torch.Tensor:
+    """YaRN's (dim//2,) float32 inverse frequencies, made once per device:
+    θ^(−2i/dim) above pair ``high``, divided by ``factor`` below ``low``,
+    blended linearly between (DeepSeek-V2's ``DeepseekV2YarnRotaryEmbedding``)."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    extra = 1.0 / (theta ** exps)
+    inter = 1.0 / (factor * theta ** exps)
+    low, high = yarn_range(dim, theta, original)
+    ramp = (torch.arange(dim // 2, dtype=torch.float32, device=device) - low) / \
+        (high - low if high != low else 0.001)
+    keep = 1.0 - ramp.clamp(0.0, 1.0)  # 1: the pair keeps its frequency
+    return inter * (1.0 - keep) + extra * keep
+
+
+def yarn_cos_sin(positions: torch.Tensor, dim: int, theta: float, factor: float,
+                 original: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (...,) -> YaRN's cos/sin (..., dim//2), float32.  DeepSeek's
+    factor on them, mscale(mscale)/mscale(mscale_all_dim), is 1: its two
+    mscales are equal."""
+    inv = yarn_inv_freq(dim, float(theta), float(factor), int(original), positions.device)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """x (B, S, H, hd); cos/sin (B, S, hd//2), cast to x's dtype first —
     rotate-half convention."""

@@ -11,8 +11,9 @@ Modes:
   decode_step  single-token step against the cache (MLA: absorbed-matrix
                attention on the compressed latent cache)
 
-Every mixer (FULL, SWA, MLA, MAMBA), the dense and MoE MLPs (or none),
-RoPE and M-RoPE positions, the text, audio-stub and vision-stub
+Every mixer (FULL, SWA, MLA with or without a query latent, MAMBA), the
+dense and MoE MLPs (or none; MoE with shared experts), RoPE (YaRN-scaled
+where configured) and M-RoPE positions, the text, audio-stub and vision-stub
 embeddings, ``sandwich_norm``, ``emb_scale`` and both softcaps.
 
 Differences of form, not of values, from the JAX package:
@@ -57,9 +58,10 @@ from . import collectives as C
 from . import layers as L
 from . import mamba as MB
 from .common import MAMBA, MLA, MOE, NONE, SWA, LayerSpec, ModelConfig
-from .moe import EXPERT_KEYS, EPInfo, moe_block
+from .moe import EXPERT_KEYS, EPInfo, moe_block, shared_experts
 
-_TRACER = get_self_tracer()  # spans model/prefill, model/decode_step and the decode mixers
+# spans model/prefill, model/decode_step, mla/prefill, moe/shared and the decode mixers
+_TRACER = get_self_tracer()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -315,11 +317,17 @@ def _positions(cfg: ModelConfig, batch, B: int, S: int, offset: int = 0,
     return L.text_positions(B, S, offset, device=device)
 
 
-def _rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor, dim: int):
+def _rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor):
+    """The RoPE table (M-RoPE's, YaRN's or plain) over the qk dim, or over
+    MLA's rope half where it has frequencies of its own (``mla_rope_freqs``)."""
+    dim = cfg.qk_rope_dim if cfg.mla_rope_freqs == "rope" else cfg.qk_dim
     if cfg.pos == "mrope":
         return L.mrope_cos_sin(positions, dim, cfg.mrope_sections, cfg.rope_theta)
     if cfg.pos == "none":
         return None, None
+    if cfg.yarn_factor:
+        return L.yarn_cos_sin(positions, dim, cfg.rope_theta, cfg.yarn_factor,
+                              cfg.yarn_original_max_pos)
     return L.rope_cos_sin(positions, dim, cfg.rope_theta)
 
 
@@ -462,13 +470,19 @@ def _mla_project(cfg, p, h, cos, sin):
     """MLA's per-head queries, split into q_nope (B,S,H,nope) and the
     rotated q_rope (B,S,H,rope), the normed latent ckv (B,S,kv_lora_rank)
     and the rotated rope key k_rope (B,S,1,rope), shared by every head.
-    The rope halves take the first rope/2 columns of cos/sin built for the
-    qk dim, as JAX does: their frequencies are those of a qk-dim-wide RoPE."""
+    The queries come through the normed query latent, or straight from
+    ``wq`` where ``q_lora_rank`` is 0.  The rope halves take the first
+    rope/2 columns of cos/sin: with ``mla_rope_freqs`` "qk" a table built
+    for the qk dim, as JAX does (the frequencies of a qk-dim-wide RoPE),
+    with "rope" the whole of a rope-dim table."""
     B, S, _ = h.shape
     H, kvr = cfg.n_heads, cfg.kv_lora_rank
     nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
-    cq = L.rms_norm(h @ p["wdq"], p["q_ln"], cfg.norm_eps)
-    q = (cq @ p["wuq"]).reshape(B, S, H, nope + rope)
+    if cfg.q_lora_rank:
+        q = L.rms_norm(h @ p["wdq"], p["q_ln"], cfg.norm_eps) @ p["wuq"]
+    else:
+        q = h @ p["wq"]
+    q = q.reshape(B, S, H, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     dkv = h @ p["wdkv"]  # (B,S,kvr+rope)
     ckv = L.rms_norm(dkv[..., :kvr], p["kv_ln"], cfg.norm_eps)
@@ -493,7 +507,12 @@ def _mla_qkv(cfg, p, h, cos, sin):
 
 
 def _mla_scale(cfg) -> float:
-    return 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    """1/sqrt(nope + rope), times YaRN's mscale(mscale_all_dim)² where the
+    configuration sets both (DeepSeek-V2's ``softmax_scale``)."""
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    if cfg.yarn_factor and cfg.yarn_mscale_all_dim:
+        scale *= L.yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim) ** 2
+    return scale
 
 
 def _mla_seq(cfg, p, h, cos, sin, ctx: ShardCtx) -> torch.Tensor:
@@ -510,15 +529,16 @@ def _mla_seq(cfg, p, h, cos, sin, ctx: ShardCtx) -> torch.Tensor:
 def _mla_seq_with_cache(cfg, p, h, cos, sin, ctx: ShardCtx):
     """Prefill: returns (attn_out, (ckv, k_rope)), the latent cache over the
     whole sequence (gathered where the hidden state is sequence-sharded);
-    the flash kernel pads v's head dim with q's."""
-    B, S, _ = h.shape
-    q, k, v, ckv, k_rope = _mla_qkv(cfg, p, h, cos, sin)
-    out, _, _ = _prefill_attention(ctx, q, k, v, causal=cfg.causal, window=0,
-                                   cap=cfg.attn_softcap, scale=_mla_scale(cfg))
-    k_rope = k_rope[:, :, 0]
-    if ctx.seq_shard:
-        ckv, k_rope = (torch.cat(ctx.all_gather(t), dim=1) for t in (ckv, k_rope))
-    return out.reshape(B, S, -1) @ p["wo"], (ckv, k_rope)
+    the flash kernel pads v's head dim with q's.  Span ``mla/prefill``."""
+    with _TRACER.span("mla/prefill"):
+        B, S, _ = h.shape
+        q, k, v, ckv, k_rope = _mla_qkv(cfg, p, h, cos, sin)
+        out, _, _ = _prefill_attention(ctx, q, k, v, causal=cfg.causal, window=0,
+                                       cap=cfg.attn_softcap, scale=_mla_scale(cfg))
+        k_rope = k_rope[:, :, 0]
+        if ctx.seq_shard:
+            ckv, k_rope = (torch.cat(ctx.all_gather(t), dim=1) for t in (ckv, k_rope))
+        return out.reshape(B, S, -1) @ p["wo"], (ckv, k_rope)
 
 
 def _gather_global(ctx: ShardCtx, h: torch.Tensor, batch: bool) -> torch.Tensor:
@@ -536,6 +556,15 @@ def _gather_global(ctx: ShardCtx, h: torch.Tensor, batch: bool) -> torch.Tensor:
 def _mlp_apply(cfg, spec, p, h, ctx: ShardCtx = ShardCtx()):
     if spec.mlp != MOE:
         return L.mlp(p, h, cfg.activation)
+    out = _routed(cfg, p, h, ctx)
+    if cfg.shared_dff:  # on every token, outside the routed layer's all-reduce
+        with _TRACER.span("moe/shared"):
+            out = out + shared_experts(p, h, cfg)
+    return out
+
+
+def _routed(cfg, p, h, ctx: ShardCtx):
+    """The routed experts' output for the rank's block ``h``."""
     if ctx.mesh is None:
         return moe_block(p, h, cfg)
     # On a mesh JAX routes the tokens of its shard_map block (sequence
@@ -646,7 +675,7 @@ def _inputs(cfg: ModelConfig, table: torch.Tensor, batch, ctx: ShardCtx):
                 batch["pos3"] = batch["pos3"][:, :, off:off + S_loc]
     x = _embed(cfg, table, batch)[:, off:off + S_loc]
     positions = _positions(cfg, batch, x.shape[0], S_loc, off, device=x.device)
-    cos, sin = _rope_cos_sin(cfg, positions, cfg.qk_dim)
+    cos, sin = _rope_cos_sin(cfg, positions)
     return x, cos, sin, ctx
 
 
@@ -1003,7 +1032,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
         # pos3 continued the text from the visual grid's rows
         shape = (3, B, 1) if cfg.pos == "mrope" else (B, 1)
         positions = torch.full(shape, pos, dtype=torch.int32, device=x.device)
-        cos, sin = _rope_cos_sin(cfg, positions, cfg.qk_dim)
+        cos, sin = _rope_cos_sin(cfg, positions)
         for period, i, spec, p in _serving_layers(cfg, params, ctx):
             c = {name: t[period] for name, t in cache["layers"][i].items()}
             x = decode_block(cfg, spec, p, x, c, pos, cos, sin, ctx, max_seq)

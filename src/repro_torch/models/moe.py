@@ -1,8 +1,10 @@
 """Mixture-of-Experts MLP (port of ``repro.models.moe``): top-k routing with
 sort-based, capacity-bounded dispatch, all on the device.
 
-Each token picks its top-k experts; the (token, expert) pairs are sorted by
-expert id and each expert takes at most ``C`` of them, in token order
+Each token picks its top-k experts, weighted by their softmax probabilities
+renormalised over the k (``cfg.moe_renormalize``, the default) or as they
+are (DeepSeek's ``norm_topk_prob`` false); the (token, expert) pairs are
+sorted by expert id and each expert takes at most ``C`` of them, in token order
 (``_positions_in_run``).  Kept tokens are scattered into an (E, C, D)
 buffer, the experts run as batched GEMMs, and each token sums its k
 weighted outputs.
@@ -19,6 +21,9 @@ Where the port pins down what torch leaves open, it follows JAX exactly:
     dtype of ``x``, in ascending expert id: the order in which XLA's
     scatter-add applies the sorted updates.  No atomics, so two calls on
     the same input are bitwise equal on the card.
+
+:func:`shared_experts` is DeepSeek's always-on SwiGLU, which the model adds
+beside ``moe_block``'s output (outside its all-reduce).
 
 Nothing here waits on the device: the capacity comes from shapes, and no
 index is read back to the host.
@@ -43,7 +48,7 @@ from . import collectives as C
 from . import layers as L
 from .common import ModelConfig
 
-_TRACER = get_self_tracer()  # span moe, with its kept pairs and its slots
+_TRACER = get_self_tracer()  # span moe, with its routed pairs, the kept ones and its slots
 
 KEYS = ("router", "moe_gate", "moe_up", "moe_down")  # the layer weights moe_block reads
 EXPERT_KEYS = KEYS[1:]  # split over the expert axis
@@ -123,7 +128,8 @@ def moe_local(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
 
         # --- routing ------------------------------------------------------------
         _, weights, ids = _route(p, xt, k)
-        weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+        if cfg.moe_renormalize:
+            weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
         C = capacity(cfg, N)
 
         # --- sort-based dispatch ------------------------------------------------
@@ -137,11 +143,13 @@ def moe_local(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
         local_e = s_ids - offset
         owned = pos < C
         if e_loc != E:
-            owned = owned & (local_e >= 0) & (local_e < e_loc)
+            mine = (local_e >= 0) & (local_e < e_loc)
+            owned = owned & mine
         sink = e_loc * C  # one row past the real slots takes every dropped pair
         slot = torch.where(owned, local_e * C + pos, sink)
-        if span:  # counts read when the spans are read: the pairs kept, the e·C slots
-            span.set(kept=owned.sum(), slots=sink)
+        if span:  # counts read when the spans are read: the pairs kept, the e·C
+            # slots, and the pairs routed to these experts (N·k for all E)
+            span.set(kept=owned.sum(), slots=sink, pairs=mine.sum() if e_loc != E else N * k)
         buf = x.new_zeros((sink + 1, D)).index_put((slot,), xt[s_tok])
         buf = buf[:sink].reshape(e_loc, C, D)
 
@@ -162,6 +170,14 @@ def moe_local(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
         for j in range(1, k):
             out = out + contrib[at[:, j]]
         return out.reshape(B, S, D)
+
+
+def shared_experts(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
+                   ) -> torch.Tensor:
+    """The shared experts (DeepSeek's ``n_shared_experts``), one SwiGLU of
+    width ``cfg.shared_dff`` on every token of x (B, S, D)."""
+    return L.mlp({"w_gate": p["shared_gate"], "w_up": p["shared_up"],
+                  "w_down": p["shared_down"]}, x, cfg.activation)
 
 
 def moe_aux_loss(

@@ -347,14 +347,23 @@ def test_params_round_trip_to_jax_is_exact():
 
 
 def test_configs_are_copies_of_the_jax_configs():
-    assert tconfigs.ARCHS == jconfigs.ARCHS and tconfigs.ALIASES == jconfigs.ALIASES
+    """JAX's ten configurations, aliases and fields, and beside them only
+    what the port alone has: its own configurations (``PORT_ONLY``) and
+    fields that JAX's configurations hold at their defaults."""
+    assert tconfigs.ARCHS == jconfigs.ARCHS
+    assert tconfigs.ALIASES == {**jconfigs.ALIASES, **tconfigs.PORT_ONLY}
     assert json.dumps({k: dataclasses.asdict(v) for k, v in tconfigs.SHAPES.items()}) == \
         json.dumps({k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()})
+    jfields = {f.name for f in dataclasses.fields(jconfigs.get_config("gemma-2b"))}
+    port_only = {f.name: f.default for f in dataclasses.fields(tconfigs.get_config("gemma-2b"))
+                 if f.name not in jfields}
+    assert port_only  # the fields DeepSeek-V2 brought
     for arch in tconfigs.ARCHS:
         for t, j in ((tconfigs.get_config(arch), jconfigs.get_config(arch)),
                      (tconfigs.smoke(arch), jconfigs.smoke(arch))):
             td, jd = dataclasses.asdict(t), dataclasses.asdict(j)
             for d in (td, jd):
                 d.pop("param_dtype"), d.pop("compute_dtype")
+            assert {k: td.pop(k) for k in port_only} == port_only, arch
             assert td == jd, arch
             assert (t.param_dtype, t.compute_dtype) == (torch.float32, torch.bfloat16)

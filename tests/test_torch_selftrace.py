@@ -193,7 +193,9 @@ def test_moe_counts_equal_a_direct_count_of_the_routing(recorder, n_shards, rank
     _, _, ids = MOE._route(p, x.reshape(N, D), k)
     load = torch.bincount(ids.reshape(-1), minlength=E)[rank * e_loc:(rank + 1) * e_loc]
     assert span.name == "moe"
-    assert span.args == {"kept": int(torch.clamp(load, max=C).sum()), "slots": e_loc * C}
+    assert span.args == {"kept": int(torch.clamp(load, max=C).sum()), "slots": e_loc * C,
+                         "pairs": int(load.sum())}  # the pairs routed to the rank's experts
+    assert n_shards > 1 or span.args["pairs"] == N * k
     full = torch.bincount(ids.reshape(-1), minlength=E)
     assert full[0] > C and (load < C).any()  # the cut drops pairs; not every slot is filled
 
