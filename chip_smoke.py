@@ -3590,7 +3590,7 @@ def seq_parallel_bodies(dev) -> dict:
                   for r in range(n)]
 
         def step(pos, h, p=p, spec=spec, blocks=blocks):
-            cos, sin = M._rope_cos_sin(cfg, torch.full((B, 1), pos, device=dev), cfg.qk_dim)
+            cos, sin = M._rope_cos_sin(cfg, torch.full((B, 1), pos, device=dev))
             q, k, v = M._qkv(cfg, p, h, cos, sin)
             merged = _stacked([M.attn_decode_partial(cfg, spec, q, k, v, blocks[r], pos, r, n)
                                for r in range(n)])
@@ -3610,7 +3610,7 @@ def seq_parallel_bodies(dev) -> dict:
                     raise AssertionError(f"{tag}: rank {r}'s {k} block differs from the cache's")
         last = S + steps - 1
         ms = _device_ms(lambda: step(last, h))
-        cos, sin = M._rope_cos_sin(cfg, torch.full((B, 1), last, device=dev), cfg.qk_dim)
+        cos, sin = M._rope_cos_sin(cfg, torch.full((B, 1), last, device=dev))
         ref_ms = _device_ms(lambda: M._attn_decode(cfg, spec, p, h, full, last, cos, sin))
         out["decode"][spec.mixer] = {"max_abs_diff": err, "slots": Sc, "device_ms": ms,
                                      "unsharded_device_ms": ref_ms}
@@ -3628,7 +3628,7 @@ def seq_parallel_bodies(dev) -> dict:
     tag = f"seq_parallel[{arch} MLA]"
     cfg, (p,) = _one_period(arch, dev)
     h = _bf16(dev, gen, B, S, cfg.d_model)
-    cos, sin = M._rope_cos_sin(cfg, M._positions(cfg, {}, B, S, device=dev), cfg.qk_dim)
+    cos, sin = M._rope_cos_sin(cfg, M._positions(cfg, {}, B, S, device=dev))
     q, k, v, ckv, k_rope = M._mla_qkv(cfg, p, h, cos, sin)
     S_loc = S // n
     kw = dict(causal=cfg.causal, window=0, cap=cfg.attn_softcap, scale=M._mla_scale(cfg))
@@ -3648,7 +3648,7 @@ def seq_parallel_bodies(dev) -> dict:
                for name, t in full.items()} for r in range(n)]
 
     def mla_step(pos, x):
-        cs, sn = M._rope_cos_sin(cfg, torch.full((B, 1), pos, device=dev), cfg.qk_dim)
+        cs, sn = M._rope_cos_sin(cfg, torch.full((B, 1), pos, device=dev))
         q_eff, q_rope, c_new, k_new = M.mla_decode_query(cfg, p, x, cs, sn)
         lat = _stacked([M.mla_decode_partial(cfg, q_eff, q_rope, c_new, k_new, blocks[r], pos, r)
                         for r in range(n)]).transpose(1, 2)

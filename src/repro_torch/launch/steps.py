@@ -2,9 +2,13 @@
 the data-parallel train step, and the dry run's cells.
 
 Eager PyTorch: there is no ``jit``, and the step functions are plain
-closures over the config.  The train step takes the gradients with
-autograd (``torch.autograd.grad``) and updates the state in place, where
-JAX donates it (``donate=False`` works on a copy instead).
+closures over the config, but for the decode step on a CUDA device
+without a mesh, which replays a CUDA graph of ``models.model.decode_step``
+(:class:`DecodeGraph`): a decode step is hundreds of small kernels, and
+enqueued one by one from the host they pace the step.  The train step
+takes the gradients with autograd (``torch.autograd.grad``) and updates
+the state in place, where JAX donates it (``donate=False`` works on a
+copy instead).
 
 :func:`make_cell` builds a step and its arguments as stand-ins on the meta
 device (shapes and dtypes, no data), which ``launch.dryrun`` runs under
@@ -34,11 +38,14 @@ from torch.distributed.tensor import DTensor
 from .. import tree as T
 from ..data.pipeline import batch_spec as data_batch_spec
 from ..models import model as M
-from ..models.common import ModelConfig, init_params, param_shapes
+from ..models.common import MLA, ModelConfig, init_params, param_shapes
 from ..models.model import ShardCtx
 from ..optim.adamw import OptConfig, apply_updates, init_opt_state
+from ..telemetry.selftrace import get_self_tracer
 from . import sharding as SH
 from .mesh import batch_axes as mesh_batch_axes, batch_shards
+
+_TRACER = get_self_tracer()  # the graphed decode step's span model/decode_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,10 +192,97 @@ def build_prefill_step(cfg: ModelConfig, ctx: ShardCtx, opts: StepOptions,
 
 
 def build_decode_step(cfg: ModelConfig, ctx: ShardCtx, opts: StepOptions) -> Callable:
+    """step(params, cache, tokens) -> (logits, cache), as ``M.decode_step``.
+
+    On a CUDA device without a mesh the step replays a :class:`DecodeGraph`,
+    captured on the first step of each decode shape (tokens, and every
+    cache leaf's shape and dtype: the batch, ``max_seq`` and the layout)
+    and again if the weights are others; its span ``model/decode_step``
+    carries ``graphed`` 1.  On the CPU, the meta device and a mesh (whose
+    collectives and rank-dependent cache writes stay on the host) it runs
+    ``M.decode_step`` eagerly."""
+    graphs: Dict[Tuple, DecodeGraph] = {}
+
     def decode_step(params, cache, tokens):
-        return M.decode_step(cfg, params, cache, tokens, ctx)
+        if ctx.mesh is not None or tokens.device.type != "cuda":
+            return M.decode_step(cfg, params, cache, tokens, ctx)
+        with _TRACER.span("model/decode_step") as span:
+            if span:
+                span.set(graphed=1)
+            key = (tokens.device, tuple(tokens.shape), tokens.dtype,
+                   tuple((name, tuple(t.shape), t.dtype) for layer in cache["layers"]
+                         for name, t in layer.items()))
+            graph = graphs.get(key)
+            if graph is None or graph.params is not params:
+                graphs[key] = graph = DecodeGraph(cfg, ctx, params, cache, tokens)
+            return graph(cache, tokens)
 
     return decode_step
+
+
+class DecodeGraph:
+    """``M.decode_step`` at one decode shape, captured in a CUDA graph over
+    static tokens, a static 0-d position and a static cache.
+
+    Capture: the cache given is copied into the static one, one eager step
+    on a side stream sets up what is made on first use (cuBLAS's handles,
+    the rope tables cached per device), then ``M.decode_step`` (looked up on
+    the module at capture) is captured with the self-tracer paused.  A
+    failed capture raises.
+
+    A call: a cache that is not the static one (a new wave's prefill) is
+    copied into it, the tokens and the position are copied in, the graph
+    replays, and the logits are cloned, so each step's logits are a tensor
+    of their own.  The cache returned holds the static tensors, so the next
+    step passes it back and nothing is copied; they are the graph's, and
+    the next call of this shape overwrites them.  So a cache holding them
+    that is not the one the last call returned, at its position, raises:
+    its state was another sequence's, or already stepped.  A position past
+    an MLA latent cache's slots raises (the eager step drops that token's
+    latent).
+    """
+
+    def __init__(self, cfg: ModelConfig, ctx: ShardCtx, params, cache, tokens: torch.Tensor):
+        dev = tokens.device
+        self.params = params
+        self.tokens = tokens.clone()
+        self.pos = torch.full((), int(cache["pos"]), dtype=torch.int64, device=dev)
+        self.layers = [{name: t.clone() for name, t in layer.items()}
+                       for layer in cache["layers"]]
+        self.slots = min((layer["ckv"].shape[2] for spec, layer in zip(cfg.layout, self.layers)
+                          if spec.mixer == MLA), default=None)
+        self.returned, self.next_pos = None, None
+        static = {**cache, "pos": self.pos, "layers": self.layers}
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), _TRACER.paused():
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                M.decode_step(cfg, params, static, self.tokens, ctx)
+            torch.cuda.current_stream().wait_stream(side)
+            with torch.cuda.graph(self.graph):
+                self.logits, _ = M.decode_step(cfg, params, static, self.tokens, ctx)
+
+    def __call__(self, cache, tokens: torch.Tensor):
+        pos = int(cache["pos"])
+        if self.slots is not None and pos >= self.slots:
+            raise ValueError(f"position {pos} is past the latent cache's {self.slots} slots")
+        if cache["layers"] is self.layers:
+            if cache is not self.returned or pos != self.next_pos:
+                raise ValueError(
+                    "this cache holds the decode graph's state, which the last step of "
+                    "this shape left for another sequence or position: step each sequence "
+                    "on from the cache its last step returned, one sequence at a time")
+        else:
+            for mine, theirs in zip(self.layers, cache["layers"]):
+                for name, t in mine.items():
+                    t.copy_(theirs[name])
+        self.tokens.copy_(tokens)
+        self.pos.fill_(pos)
+        self.graph.replay()
+        self.next_pos = pos + 1
+        self.returned = {**cache, "pos": self.next_pos, "layers": self.layers}
+        return self.logits.clone(), self.returned
 
 
 def make_dp_train_step(

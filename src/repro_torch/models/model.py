@@ -20,7 +20,10 @@ Differences of form, not of values, from the JAX package:
   * ``lax.scan`` over periods is a Python loop over layers; parameters and
     caches keep JAX's layout, stacked over periods per layout position.
   * The cache is updated in place (JAX donates it instead), and its ``pos``
-    is a host int, so a decode step never waits on the device for it.
+    is a host int, so a decode step never waits on the device for it; or,
+    on one device, a 0-d integer tensor on the cache's device, which a
+    decode step reads there (the CUDA graph of ``launch.steps``: one graph
+    serves every position).
   * forward, prefill and decode_step take weights already in the compute
     dtype: cast the float32 master weights once with :func:`compute_params`
     (see there), where JAX casts them inside every call.  The training
@@ -850,7 +853,7 @@ def _cache_block(ctx: ShardCtx, name: str, t: torch.Tensor) -> torch.Tensor:
     return t.narrow(dim, ctx.model_rank * n // ctx.tp, n // ctx.tp).clone()
 
 
-def _attn_decode(cfg, spec, p, h, cache, pos: int, cos, sin):
+def _attn_decode(cfg, spec, p, h, cache, pos, cos, sin):
     """One-token attention against the (possibly ring-buffered) cache; the
     new key and value are written into ``cache`` in place."""
     q, k, v = _qkv(cfg, p, h, cos, sin)
@@ -878,25 +881,34 @@ def merge_partials(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor, pmax, ps
     return acc_g / l_g.clamp(min=1e-30)[..., None]
 
 
-def attn_decode_partial(cfg, spec, q, k_new, v_new, cache, pos: int, rank: int, tp: int):
+def attn_decode_partial(cfg, spec, q, k_new, v_new, cache, pos, rank: int, tp: int):
     """One rank's share of a decode step's attention over its block of a
     sequence-sharded cache (``cache``'s k, v (B, Sc/tp, KV, hd) and kpos;
     the whole cache at rank 0 of 1): the new key and value are written
     where the rank owns slot ``pos % Sc`` (the ring's slot for SWA; ``pos``
-    itself otherwise, pos < Sc), in place.  -> (acc, m, l) of
-    ``layers.attention_partial`` over the block."""
+    itself otherwise, pos < Sc), in place.  ``pos`` a 0-d device tensor
+    (rank 0 of 1 only): the same writes, indexed on the device.  -> (acc,
+    m, l) of ``layers.attention_partial`` over the block."""
     Sc_loc = cache["k"].shape[1]
-    rel = pos % (Sc_loc * tp) - rank * Sc_loc
-    if 0 <= rel < Sc_loc:
-        cache["k"][:, rel] = k_new[:, 0]
-        cache["v"][:, rel] = v_new[:, 0]
-        # fill_, not ``= pos``: item assignment copies a CPU scalar tensor to
-        # the card, a pageable copy that makes the host wait once per layer
-        cache["kpos"][rel].fill_(pos)
+    if isinstance(pos, torch.Tensor):
+        slot = (pos % Sc_loc).view(1)
+        cache["k"].index_copy_(1, slot, k_new)
+        cache["v"].index_copy_(1, slot, v_new)
+        cache["kpos"].index_copy_(0, slot, pos.view(1).to(cache["kpos"].dtype))
+        qpos = pos.view(1, 1)
+    else:
+        rel = pos % (Sc_loc * tp) - rank * Sc_loc
+        if 0 <= rel < Sc_loc:
+            cache["k"][:, rel] = k_new[:, 0]
+            cache["v"][:, rel] = v_new[:, 0]
+            # fill_, not ``= pos``: item assignment copies a CPU scalar tensor to
+            # the card, a pageable copy that makes the host wait once per layer
+            cache["kpos"][rel].fill_(pos)
+        qpos = torch.full((1, 1), pos, device=q.device)
     return L.attention_partial(
         q, cache["k"], cache["v"], causal=True, window=cfg.window if spec.mixer == SWA else 0,
         cap=cfg.attn_softcap, scale=1.0 / math.sqrt(cfg.head_dim),
-        qpos=torch.full((1, 1), pos, device=q.device), kpos=cache["kpos"][None, :])
+        qpos=qpos, kpos=cache["kpos"][None, :])
 
 
 def _attn_decode_sharded(cfg, spec, p, q, k_new, v_new, cache, pos: int, ctx: ShardCtx):
@@ -909,16 +921,23 @@ def _attn_decode_sharded(cfg, spec, p, q, k_new, v_new, cache, pos: int, ctx: Sh
     return _heads_out(merge_partials(acc, m, l, ctx.pmax, ctx.psum), q.dtype)
 
 
-def mla_decode_partial(cfg, q_eff, q_rope, ckv_new, krope_new, cache, pos: int, rank: int):
+def mla_decode_partial(cfg, q_eff, q_rope, ckv_new, krope_new, cache, pos, rank: int):
     """One rank's share of the absorbed-MLA decode over its block of the
     sequence-sharded latent cache (slots = positions: no ring); the new
     latent and rope key are written where the rank owns ``pos``, in place.
-    -> (acc (B,H,1,kvr), m, l), float32."""
+    ``pos`` a 0-d device tensor (rank 0 of 1 only, pos < the cache's
+    slots): the same writes, indexed on the device.  -> (acc (B,H,1,kvr),
+    m, l), float32."""
     Sc_loc = cache["ckv"].shape[1]
-    rel = pos - rank * Sc_loc
-    if 0 <= rel < Sc_loc:
-        cache["ckv"][:, rel] = ckv_new[:, 0]
-        cache["krope"][:, rel] = krope_new[:, 0, 0]
+    if isinstance(pos, torch.Tensor):
+        slot = pos.view(1)
+        cache["ckv"].index_copy_(1, slot, ckv_new)
+        cache["krope"].index_copy_(1, slot, krope_new[:, :, 0])
+    else:
+        rel = pos - rank * Sc_loc
+        if 0 <= rel < Sc_loc:
+            cache["ckv"][:, rel] = ckv_new[:, 0]
+            cache["krope"][:, rel] = krope_new[:, 0, 0]
     cc, kc = cache["ckv"].float(), cache["krope"].float()
     s = torch.einsum("bqhk,bsk->bhqs", q_eff.float(), cc)
     s = s + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), kc)
@@ -939,7 +958,7 @@ def _mla_decode_sharded(cfg, p, q_eff, q_rope, ckv_new, krope_new, cache, pos: i
     return merge_partials(acc, m, l, ctx.pmax, ctx.psum).transpose(1, 2)
 
 
-def _mla_decode(cfg, p, h, cache, pos: int, cos, sin):
+def _mla_decode(cfg, p, h, cache, pos, cos, sin):
     """Absorbed-matrix MLA decode on the compressed latent cache: W_uk is
     folded into the query and W_uv applied after the softmax, so no per-head
     key or value is built.  The new latent and rope key are written into
@@ -969,7 +988,7 @@ def mla_latent_out(cfg, p, lat: torch.Tensor, dtype) -> torch.Tensor:
     return out.reshape(B, 1, H * vh).to(dtype) @ p["wo"]
 
 
-def decode_block(cfg, spec, p, x, cache, pos: int, cos, sin, ctx: ShardCtx = ShardCtx(),
+def decode_block(cfg, spec, p, x, cache, pos, cos, sin, ctx: ShardCtx = ShardCtx(),
                  max_seq: Optional[int] = None):
     """One layer of a decode step; ``cache`` (this layer's slice) is
     updated in place.  On a mesh, attention runs the sharded decodes
@@ -990,7 +1009,7 @@ def decode_block(cfg, spec, p, x, cache, pos: int, cos, sin, ctx: ShardCtx = Sha
     return _mlp_residual(cfg, spec, p, x, ctx)
 
 
-def _attention_decode(cfg, spec, p, h, cache, pos: int, cos, sin, ctx: ShardCtx,
+def _attention_decode(cfg, spec, p, h, cache, pos, cos, sin, ctx: ShardCtx,
                       max_seq: Optional[int]):
     """decode_block's attention mixer (MLA or not, sharded or not)."""
     sharded = ctx.mesh is not None and _seq_sharded(ctx, _cache_len(cfg, spec, max_seq))
@@ -1014,10 +1033,21 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
     advanced; the cache passed in is not to be stepped again.  On a mesh
     ``tokens`` is the global batch (or placed by ``batch_shardings``), the
     cache the rank's blocks (:func:`init_cache`, :func:`prefill`), and the
-    logits the rank's rows; ``params`` may be placed.
+    logits the rank's rows; ``params`` may be placed.  Without a mesh
+    ``cache["pos"]`` may be a 0-d integer tensor on the cache's device (a
+    CUDA graph's position, filled before each replay): every read of it is
+    then a device op, with the numbers of the host int's path bit for bit.
+    The span ``model/decode_step`` carries ``graphed`` 0: this step runs
+    eagerly (``launch.steps.build_decode_step``'s replay carries 1).
     """
-    with _TRACER.span("model/decode_step"):
-        pos = int(cache["pos"])
+    with _TRACER.span("model/decode_step") as span:
+        if span:
+            span.set(graphed=0)
+        pos = cache["pos"]
+        if not isinstance(pos, torch.Tensor):
+            pos = int(pos)
+        elif ctx.mesh is not None:
+            raise ValueError("a decode step on a mesh takes the position as a host int")
         max_seq = cache.get("max_seq")
         if ctx.mesh is not None:
             if max_seq is None:
@@ -1031,7 +1061,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
         # M-RoPE: t = h = w = pos, as JAX decodes, also after a prefill whose
         # pos3 continued the text from the visual grid's rows
         shape = (3, B, 1) if cfg.pos == "mrope" else (B, 1)
-        positions = torch.full(shape, pos, dtype=torch.int32, device=x.device)
+        positions = pos.to(torch.int32).expand(shape) if isinstance(pos, torch.Tensor) else \
+            torch.full(shape, pos, dtype=torch.int32, device=x.device)
         cos, sin = _rope_cos_sin(cfg, positions)
         for period, i, spec, p in _serving_layers(cfg, params, ctx):
             c = {name: t[period] for name, t in cache["layers"][i].items()}

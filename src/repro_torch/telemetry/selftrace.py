@@ -35,13 +35,16 @@ package cycle -- ``trace`` imports the monitor which imports telemetry).
 
 Off (neither condition), :meth:`SelfTracer.span` tests two flags and
 returns one shared no-op context: no allocation, no lock, no profiler
-call.  The module imports no torch: the monitor's shard workers load
+call.  Inside :meth:`SelfTracer.paused` a thread's spans are off whatever
+the conditions: a CUDA graph's capture keeps no span's events or device
+counts.  The module imports no torch: the monitor's shard workers load
 none.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import os
 import sys
@@ -216,8 +219,24 @@ class SelfTracer:
 
     @property
     def recording(self) -> bool:
-        """Whether a span opened now records: self-tracing on or a profiler recording."""
-        return self._enabled or _profiler._is_profiler_enabled
+        """Whether a span opened now records: self-tracing on or a profiler
+        recording, and the thread not :meth:`paused`."""
+        return (self._enabled or _profiler._is_profiler_enabled) and not self._paused()
+
+    def _paused(self) -> bool:
+        return getattr(self._local, "paused", False)
+
+    @contextlib.contextmanager
+    def paused(self):
+        """No span records on this thread inside, even while a profiler
+        records: the region is a CUDA graph's capture, and a span would
+        hold its events and counts in the graph's memory."""
+        was = self._paused()
+        self._local.paused = True
+        try:
+            yield
+        finally:
+            self._local.paused = was
 
     @property
     def dropped(self) -> int:
@@ -253,7 +272,7 @@ class SelfTracer:
         a tensor; where it lies on CUDA the span and every span opened
         under it are also timed on the device (see the module).  Args go
         on through the span's ``set(**args)``."""
-        if not (self._enabled or _profiler._is_profiler_enabled):
+        if not (self._enabled or _profiler._is_profiler_enabled) or self._paused():
             return _NULL
         return _OpenSpan(self, name, timed_on)
 
@@ -261,7 +280,7 @@ class SelfTracer:
                args: Optional[dict] = None) -> None:
         """Record a span with explicit timestamps (for callers that timed
         the region themselves), under the thread's open span."""
-        if not (self._enabled or _profiler._is_profiler_enabled):
+        if not (self._enabled or _profiler._is_profiler_enabled) or self._paused():
             return
         stack = self._stack()
         self._append(name, next(self._ids), stack[-1].id if stack else 0, t0_us, dur_us, args)
